@@ -1,0 +1,25 @@
+"""Data: synthetic CIFAR, partitions and client batching, held against
+``repro.data`` (numpy on both sides, bitwise)."""
+
+from repro_torch.data.partition import (
+    PackedParts,
+    class_histogram,
+    dirichlet_partition,
+    iid_partition,
+    population_partition,
+    population_partition_reference,
+)
+from repro_torch.data.pipeline import ArrayDataset, ClientBatcher
+from repro_torch.data.synthetic import synthetic_cifar
+
+__all__ = [
+    "ArrayDataset",
+    "ClientBatcher",
+    "PackedParts",
+    "synthetic_cifar",
+    "iid_partition",
+    "dirichlet_partition",
+    "population_partition",
+    "population_partition_reference",
+    "class_histogram",
+]

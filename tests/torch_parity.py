@@ -1,0 +1,96 @@
+"""Shared helpers for the port's parity tests (tests/test_torch_*.py).
+
+Data crosses between the JAX reference and the PyTorch port only as numpy
+arrays. The reference's quantizer uniforms are rebuilt here in jax from
+the round's integer seed, exactly as its step draws them
+(``repro.core.ltfl_step`` splits the round key into C + 1 client keys,
+``repro.core.compressors.ltfl_quantizer`` splits each client key per
+leaf and draws ``uniform(k, leaf.shape)``), and handed to the port
+through its ``uniforms`` hook.
+"""
+import functools
+
+import jax
+import numpy as np
+import torch
+
+from repro.configs.base import LTFLConfig as RefLTFLConfig
+from repro.configs.ltfl_paper import ResNetConfig as RefResNetConfig
+from repro_torch.configs import LTFLConfig, ResNetConfig
+from repro_torch.models import ResNet, params_to_numpy
+
+# the small configuration every parity test uses: ResNet width 8,
+# U = 4 devices, per-device batch 4, a short Algorithm-1 solve
+WIDTH = dict(stem_channels=8, group_channels=(8, 16, 32, 32))
+LTFL = dict(num_devices=4, bo_iters=4, alt_max_iters=2)
+BATCH = 4
+
+
+def ref_resnet_config():
+    return RefResNetConfig(**WIDTH)
+
+
+def port_resnet_config():
+    return ResNetConfig(**WIDTH)
+
+
+def ref_ltfl():
+    return RefLTFLConfig(**LTFL)
+
+
+def port_ltfl():
+    return LTFLConfig(**LTFL)
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def _reference_draws(key, n_clients, shapes):
+    def per_client(k):
+        leaf_keys = jax.random.split(k, len(shapes))
+        return [jax.random.uniform(leaf_keys[i], s)
+                for i, s in enumerate(shapes)]
+    keys = jax.random.split(key, n_clients + 1)
+    return jax.vmap(per_client)(keys[:n_clients])
+
+
+def initial_weights(seed=0):
+    """Initial ResNet weights as the reference's numpy tree, made once
+    with the port's initializer and handed to both sides."""
+    model = ResNet(port_resnet_config())
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    return params_to_numpy(model.init(gen))
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3))
+def _reference_draws_flat(key, n_clients, n_leaves, width):
+    def per_client(k):
+        leaf_keys = jax.random.split(k, n_leaves)
+        return jax.vmap(lambda lk: jax.random.uniform(lk, (width,)))(
+            leaf_keys)
+    keys = jax.random.split(key, n_clients + 1)
+    return jax.vmap(per_client)(keys[:n_clients])
+
+
+def jax_uniforms(seed, n_clients, shapes):
+    """The reference step's quantizer uniforms for round seed ``seed``:
+    one (C, *shape) float32 tensor per leaf, in leaf order (split and
+    vmapped over clients as the reference step does).
+
+    With partitionable threefry (jax's default since 0.5) element i of
+    ``uniform(k, shape)`` depends only on k and the flat index i, so one
+    draw of the widest leaf's length per key, cut to each leaf, gives the
+    same numbers at one compile instead of one per leaf shape."""
+    shapes = tuple(tuple(s) for s in shapes)
+    key = jax.random.PRNGKey(seed)
+    if not jax.config.jax_threefry_partitionable:
+        draws = _reference_draws(key, n_clients, shapes)
+        return [torch.from_numpy(np.array(d)) for d in draws]
+    sizes = [int(np.prod(s)) for s in shapes]
+    flat = np.asarray(_reference_draws_flat(key, n_clients, len(shapes),
+                                            max(sizes)))
+    return [torch.from_numpy(flat[:, i, :n].reshape((n_clients,) + s).copy())
+            for i, (n, s) in enumerate(zip(sizes, shapes))]
+
+
+def tree_numpy(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
