@@ -1,12 +1,130 @@
-"""Configurations, held against ``repro.configs`` (Table 2 and the
-paper's ResNet)."""
+"""Configurations, held against ``repro.configs``: Table 2, the paper's
+ResNet, and the architecture registry.
 
-from repro_torch.configs.base import LTFLConfig, WirelessConfig
+``ARCHS`` holds the architectures the port can build (granite-8b, dense,
+and its sliding-window variant); the reference's other nine configs come
+with their model families. ``get_arch``, ``list_archs`` and
+``reduce_for_smoke`` behave as the reference's.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+from repro_torch.configs import granite_8b
+from repro_torch.configs.base import (
+    SHAPES,
+    ArchConfig,
+    LTFLConfig,
+    MLAConfig,
+    MoEConfig,
+    ShapeConfig,
+    SSMConfig,
+    WirelessConfig,
+)
 from repro_torch.configs.ltfl_paper import (
     CONFIG,
     PaperExperimentConfig,
     ResNetConfig,
 )
 
-__all__ = ["LTFLConfig", "WirelessConfig", "ResNetConfig",
-           "PaperExperimentConfig", "CONFIG"]
+ARCHS: Dict[str, ArchConfig] = {granite_8b.CONFIG.name: granite_8b.CONFIG}
+
+# Named variants (not part of the architecture grid; used where documented).
+VARIANTS: Dict[str, ArchConfig] = {
+    "granite-8b-sw4096": granite_8b.LONG_CONTEXT_VARIANT,
+}
+
+
+def get_arch(name: str) -> ArchConfig:
+    if name in ARCHS:
+        return ARCHS[name]
+    if name in VARIANTS:
+        return VARIANTS[name]
+    raise KeyError(
+        f"unknown arch {name!r}; available: {sorted(ARCHS) + sorted(VARIANTS)}"
+    )
+
+
+def list_archs() -> List[str]:
+    return sorted(ARCHS)
+
+
+def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:
+    """Reduced same-family variant for CPU smoke tests:
+    2 layers, d_model<=512, <=4 experts, small vocab."""
+    d_model = min(cfg.d_model, 256)
+    n_heads = min(cfg.n_heads, 4)
+    n_kv = max(1, min(cfg.n_kv_heads, n_heads))
+    while n_heads % n_kv:
+        n_kv -= 1
+    head_dim = max(d_model // n_heads, 8)
+    kw = dict(
+        n_layers=2,
+        d_model=d_model,
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        head_dim=head_dim,
+        d_ff=min(cfg.d_ff, 512),
+        vocab_size=min(cfg.vocab_size, 512),
+        sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
+    )
+    if cfg.moe is not None:
+        kw["moe"] = MoEConfig(
+            num_experts=min(cfg.moe.num_experts, 4),
+            top_k=min(cfg.moe.top_k, 2),
+            d_expert=min(cfg.moe.d_expert, 128),
+            num_shared_experts=min(cfg.moe.num_shared_experts, 1),
+            d_shared_expert=min(cfg.moe.d_shared_expert, 128),
+            first_k_dense=min(cfg.moe.first_k_dense, 1),
+            dense_d_ff=min(cfg.moe.dense_d_ff, 256),
+        )
+    if cfg.mla is not None:
+        kw["mla"] = MLAConfig(
+            kv_lora_rank=64,
+            q_lora_rank=0,
+            qk_nope_head_dim=32,
+            qk_rope_head_dim=16,
+            v_head_dim=32,
+        )
+        kw["head_dim"] = 48  # nope + rope
+    if cfg.ssm is not None:
+        kw["ssm"] = SSMConfig(
+            state_dim=min(cfg.ssm.state_dim, 16),
+            head_dim=min(cfg.ssm.head_dim, 32),
+            expand=cfg.ssm.expand,
+            conv_width=cfg.ssm.conv_width,
+            chunk_size=16,
+        )
+        if cfg.name.startswith("rwkv"):
+            # keep d_model divisible by rwkv head_dim
+            kw["n_heads"] = d_model // min(cfg.ssm.head_dim, 32)
+            kw["n_kv_heads"] = kw["n_heads"]
+            kw["head_dim"] = min(cfg.ssm.head_dim, 32)
+    if cfg.attn_every:
+        kw["attn_every"] = 2  # 2 reduced layers -> one shared-block call
+    if cfg.encoder_layers:
+        kw["encoder_layers"] = 2
+        kw["encoder_seq"] = 16
+    if cfg.num_image_tokens:
+        kw["num_image_tokens"] = 8
+    return cfg.replace(**kw)
+
+
+__all__ = [
+    "ARCHS",
+    "VARIANTS",
+    "SHAPES",
+    "ArchConfig",
+    "ShapeConfig",
+    "LTFLConfig",
+    "WirelessConfig",
+    "MoEConfig",
+    "MLAConfig",
+    "SSMConfig",
+    "ResNetConfig",
+    "PaperExperimentConfig",
+    "CONFIG",
+    "get_arch",
+    "list_archs",
+    "reduce_for_smoke",
+]

@@ -19,14 +19,18 @@ Contract:
 ``PRNGKey(seed)``). Randomness: by default ``ltfl_quantizer`` seeds a
 ``torch.Generator`` on the gradients' device with it and draws one
 (C, *leaf.shape) uniform tensor per leaf, in the tree's (the reference's)
-leaf order. ``uniforms`` replaces that draw: a callable
-``(seed, n_clients, shapes) -> [tensor (C, *shape) per leaf]`` — the
-parity tests feed the reference's own draws through it.
+leaf order, each just before that leaf's quantizer launch: only one
+leaf's uniforms are held at a time (all of them at once would be 13.4 GB
+on granite-8b's widths at 2 layers and 4 clients). ``uniforms`` replaces
+that draw: a callable ``(seed, n_clients, shapes) -> iterable of tensors
+(C, *shape), one per leaf`` — the parity tests feed the reference's own
+draws through it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterable, Iterator, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -34,7 +38,7 @@ from repro_torch.kernels import ops
 
 Tree = Dict[str, torch.Tensor]
 UniformSource = Callable[[int, int, Sequence[Tuple[int, ...]]],
-                         Sequence[torch.Tensor]]
+                         Iterable[torch.Tensor]]
 
 
 @dataclass(frozen=True)
@@ -55,13 +59,15 @@ def identity_compressor() -> Compressor:
 
 def torch_uniforms(seed: int, n_clients: int,
                    shapes: Sequence[Tuple[int, ...]],
-                   device: torch.device) -> List[torch.Tensor]:
+                   device: torch.device) -> Iterator[torch.Tensor]:
     """The port's own draws: a generator on ``device`` seeded with the
-    round seed, one (C, *shape) uniform tensor per leaf, in order."""
+    round seed, one (C, *shape) uniform tensor per leaf, in order, each
+    drawn when the caller asks for it."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    return [torch.rand((n_clients,) + tuple(s), generator=gen,
-                       device=device, dtype=torch.float32) for s in shapes]
+    for s in shapes:
+        yield torch.rand((n_clients,) + tuple(s), generator=gen,
+                         device=device, dtype=torch.float32)
 
 
 def ltfl_quantizer(*, uniforms: Optional[UniformSource] = None
@@ -88,6 +94,7 @@ def ltfl_quantizer(*, uniforms: Optional[UniformSource] = None
             q = ops.quantize_dequantize_2d_dyn(
                 x.reshape(n_clients, -1),
                 bits, rand=r.to(device).reshape(n_clients, -1))
+            del r            # free this leaf's uniforms before the next draw
             keep = (delta > 0).reshape((n_clients,) + (1,) * (x.dim() - 1))
             out[name] = torch.where(keep, q.reshape(x.shape), x)
         return out, state

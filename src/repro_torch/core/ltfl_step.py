@@ -1,32 +1,43 @@
-"""The LTFL federated round step (paper Eq. 8-20), edge form.
+"""The LTFL federated round step (paper Eq. 8-20).
 
-Held against ``repro.core.ltfl_step.make_fl_train_step`` with
-``prune_kind="magnitude"``, host-sampled ``alpha`` and the optional
-``agg_denom`` and ``lr`` controls. One call does all tensor work of a
-round:
+Held against ``repro.core.ltfl_step.make_fl_train_step``: both prune
+kinds (``"magnitude"``, the edge step; ``"block"``, the datacenter
+step, with ``prune_block``), host-sampled ``alpha`` or the in-step
+packet-drop draw from ``drop_prob``, and the optional ``agg_denom`` and
+``lr`` controls. One call does all tensor work of a round:
 
-1. magnitude-prune the global weights per client (Eq. 12-13): each leaf
-   is ranked once and every client keeps its own floor(rho_u n) cut, so
-   the pruned weights come out stacked (C, ...);
+1. prune the global weights per client (Eq. 12-13): each leaf's
+   importance is computed and ranked once (for block pruning the tile
+   norms are the ``block_norms`` kernel) and every client keeps its own
+   floor(rho_c n) cut, so the pruned weights come out stacked (C, ...)
+   (for block pruning one ``apply_block_mask`` launch per leaf);
 2. per-client loss and gradient at the pruned weights with
-   ``torch.func.vmap(torch.func.grad_and_value(...))`` over
-   ``functional_call`` (vmap, not a loop over clients), then the mask
-   (pruned coordinates are neither trained nor uploaded, Eq. 32);
+   ``torch.func.vmap(torch.func.grad_and_value(...))`` (vmap, not a loop
+   over clients), then the masks (pruned coordinates are neither trained
+   nor uploaded, Eq. 32; tile masks through ``apply_block_mask`` again);
 3. the compressor on the STACKED (C, ...) gradients, outside the vmap —
    for LTFL one quantizer kernel launch per leaf covers all clients;
-4. the sample-weighted aggregate over received clients (Eq. 19) and the
+4. the packet outcomes: the host's ``alpha``, or alpha = uniform(C) >=
+   drop_prob (Eq. 4) drawn in the step;
+5. the sample-weighted aggregate over received clients (Eq. 19) and the
    SGD update (Eq. 20).
 
 ``controls`` (tensors on the step's device):
     rho        (C,) pruning ratios
     delta      (C,) quantization bit-widths (0 => passthrough)
     weights    (C,) sample counts N_u
-    alpha      (C,) host-sampled transmission outcomes (Eq. 4)
+    alpha      (C,) host-sampled transmission outcomes (Eq. 4), OR
+    drop_prob  (C,) packet error rates, drawn against in the step
     agg_denom  () optional fixed normalizer (unbiased participation)
     lr         () optional learning rate, routed to ``update_with_lr``
 
-Block pruning (the datacenter step's ``prune_kind="block"``) and the
-in-step packet-drop draw are not ported yet.
+Randomness: the reference splits ``PRNGKey(seed)`` into C + 1 keys, the
+first C for the quantizer and the last for the drop draw. The port's
+quantizer seeds its own generator with ``seed`` (``core.compressors``);
+the drop draw uses a generator on the step's device seeded with
+``seed + DROP_STREAM``, a stream of its own. ``drop_uniforms`` replaces
+that draw: a callable ``(seed, n_clients) -> (C,) tensor`` — the parity
+tests feed the reference's own draw through it.
 """
 from __future__ import annotations
 
@@ -41,44 +52,76 @@ from repro_torch.core.compressors import (
     identity_compressor,
     ltfl_quantizer,
 )
-from repro_torch.core.pruning import magnitude_prune_pytree
+from repro_torch.core.pruning import (
+    gate_pytree,
+    magnitude_prune_pytree,
+    prune_pytree,
+)
 from repro_torch.core.quantization import range_sq_sum
 from repro_torch.optim import Optimizer, apply_updates, global_norm
 
 Tree = Dict[str, torch.Tensor]
+DropSource = Callable[[int, int], torch.Tensor]
+DROP_STREAM = 1 << 32
+
+
+def torch_drop_uniforms(seed: int, n_clients: int,
+                        device: torch.device) -> torch.Tensor:
+    """The port's own drop draw: (C,) uniforms from a generator on
+    ``device`` seeded with ``seed + DROP_STREAM``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed) + DROP_STREAM)
+    return torch.rand((n_clients,), generator=gen, device=device,
+                      dtype=torch.float32)
 
 
 def make_fl_train_step(model, optimizer: Optimizer, n_clients: int, *,
+                       prune_block: int = 128,
                        quantize: bool = True,
                        prune: bool = True,
-                       prune_kind: str = "magnitude",
-                       compressor: Optional[Compressor] = None) -> Callable:
+                       prune_kind: str = "block",
+                       simulate_drops: bool = True,
+                       compressor: Optional[Compressor] = None,
+                       drop_uniforms: Optional[DropSource] = None
+                       ) -> Callable:
     """Build step(params, opt_state, comp_state, batch, controls, seed)
     -> (params, opt_state, comp_state, metrics).
 
     ``batch`` leaves carry a leading client axis C == n_clients;
-    ``seed`` is the round's integer seed, handed to the compressor.
-    ``compressor`` None picks the LTFL quantizer (or identity when
-    ``quantize`` is False)."""
-    if prune_kind != "magnitude":
-        raise ValueError(f"prune_kind={prune_kind!r}: only 'magnitude' "
-                         "is ported (block pruning is queued)")
+    ``seed`` is the round's integer seed (the reference's key is
+    ``PRNGKey(seed)``). ``compressor`` None picks the LTFL quantizer (or
+    identity when ``quantize`` is False). Without ``controls["alpha"]``
+    every client is received (``simulate_drops`` False) or drops with
+    probability ``controls["drop_prob"]``."""
+    if prune_kind not in ("block", "magnitude"):
+        raise ValueError(f"prune_kind={prune_kind!r}")
     if compressor is None:
         compressor = ltfl_quantizer() if quantize else identity_compressor()
     comp = compressor
+    per_client = grad_and_value(model.loss)
 
-    def client_loss(p: Tree, cbatch: Dict[str, torch.Tensor]
-                    ) -> torch.Tensor:
-        return model.loss(p, cbatch)
+    def _prune(params: Tree, rho: torch.Tensor) -> Tuple[Tree, Tree]:
+        if prune_kind == "magnitude":
+            return magnitude_prune_pytree(params, rho)
+        return prune_pytree(params, rho, block=prune_block)
 
-    per_client = grad_and_value(client_loss)
+    def _alpha(controls: Dict[str, torch.Tensor], seed: int,
+               device: torch.device) -> torch.Tensor:
+        if "alpha" in controls:                     # host-sampled channel
+            return controls["alpha"].to(torch.float32)
+        if not simulate_drops:
+            return torch.ones((n_clients,), dtype=torch.float32,
+                              device=device)
+        u = (torch_drop_uniforms(seed, n_clients, device)
+             if drop_uniforms is None else drop_uniforms(seed, n_clients))
+        return (u.to(device) >= controls["drop_prob"]).to(torch.float32)
 
     def step(params: Tree, opt_state: Any, comp_state: Any,
              batch: Dict[str, torch.Tensor],
              controls: Dict[str, torch.Tensor], seed: int
              ) -> Tuple[Tree, Any, Any, Dict[str, torch.Tensor]]:
         if prune:
-            pruned, masks = magnitude_prune_pytree(params, controls["rho"])
+            pruned, masks = _prune(params, controls["rho"])
         else:
             pruned, masks = params, None
         # stacked leaves (pruned per client) map over dim 0; shared
@@ -87,15 +130,17 @@ def make_fl_train_step(model, optimizer: Optimizer, n_clients: int, *,
                    for k, v in pruned.items()}
         grads, losses = vmap(per_client, in_dims=(in_dims, 0))(
             pruned, batch)
+        del pruned               # C weight copies: free before compressing
         if prune:
-            grads = {k: g * masks[k].to(g.dtype) for k, g in grads.items()}
+            grads = gate_pytree(grads, masks, prune_block)
         rsqs = range_sq_sum(grads, client_axis=True)
         grads, comp_state = comp.compress(grads, controls["delta"], seed,
                                           comp_state)
 
-        alpha = controls["alpha"].to(torch.float32)
+        alpha = _alpha(controls, seed, losses.device)
         g = aggregate(grads, controls["weights"], alpha,
                       denom=controls.get("agg_denom"))
+        del grads
         g = comp.server_transform(g)
         lr = controls.get("lr")
         if lr is None:

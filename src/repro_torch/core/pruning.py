@@ -1,19 +1,30 @@
-"""Unstructured magnitude pruning (paper Eq. 11-13, Lemma 2).
+"""Model pruning (paper Eq. 11-13, Lemma 2), unstructured and by blocks.
 
-Held against ``repro.core.pruning`` (``_rank_mask``, ``magnitude_prune``,
-``magnitude_prune_pytree``): importance I_v = |w_v| (Eq. 12), the
-smallest floor(rho * n) entries of each >= 2-D leaf are zeroed, 1-D
-leaves are exempt. Masks are bitwise the reference's:
+Held against ``repro.core.pruning``:
 
-* k = floor(clip(rho, 0, 1) * n) is computed in float32, from the f32
-  control, as the reference does (an f64 product can give another k near
-  an integer at n in the millions);
-* ranks come from one STABLE argsort, inverted by a scatter of arange —
-  the reference's double argsort — so ties break by position.
+* ``magnitude_prune`` / ``magnitude_prune_pytree`` — the paper's
+  importance I_v = |w_v| (Eq. 12): the smallest floor(rho * n) entries of
+  each >= 2-D leaf are zeroed, 1-D leaves are exempt (the edge step).
+* ``block_importance`` / ``block_prune`` / ``prune_pytree`` — importance
+  is the L2 norm of (block x block) tiles of the last two dims, and whole
+  tiles are zeroed (the datacenter step's ``prune_kind="block"``).
+  Tileable leaves go through the block-prune kernels
+  (``kernels.ops.block_prune_2d``: leading dims collapse into rows, which
+  keeps every tile whole and the reference's global tile order); other
+  >= 2-D leaves — the stacked (L, d) norm scales among them — are
+  magnitude-pruned; 1-D leaves are exempt.
 
-``rho`` may be a scalar or a (C,) per-client vector; with a vector every
->= 2-D leaf comes back as a (C, ...) stack (one pruned copy per client)
-while the ranking itself is computed once per leaf.
+Masks are bitwise the reference's: the ranking rule is
+``kernels.ops.rank_mask`` (float32 cut, stable ranks). ``rho`` may be a
+scalar or a (C,) per-client vector; with a vector every pruned leaf
+comes back as a (C, ...) stack (one pruned copy per client) while the
+importance and its ranking are computed once per leaf.
+
+The mask of a tileable leaf is its TILE mask, (C?, *lead, tr, tc) as the
+reference's ``block_prune`` returns it, not the reference
+``prune_pytree``'s expanded element mask: ``gate_pytree`` applies it to
+the gradients with the masking kernel, which gives the same product per
+element without a (C, ...) element mask. ``element_masks`` expands it.
 """
 from __future__ import annotations
 
@@ -21,40 +32,22 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import ops
+from repro_torch.kernels.block_prune import apply_block_mask, block_norms
+
 Tree = Dict[str, torch.Tensor]
-
-
-def _ranks(a: torch.Tensor) -> torch.Tensor:
-    """Ascending rank of each entry of ``a`` (stable: ties by position)."""
-    flat = a.reshape(-1)
-    order = torch.argsort(flat, stable=True)
-    ranks = torch.empty_like(order)
-    ranks[order] = torch.arange(flat.numel(), device=flat.device)
-    return ranks.reshape(a.shape)
-
-
-def _prune_counts(rho: torch.Tensor, n: int) -> torch.Tensor:
-    """k = floor(clip(rho, 0, 1) * n) in float32, as int64."""
-    rho = torch.as_tensor(rho, dtype=torch.float32)
-    k = torch.floor(torch.clamp(rho, 0.0, 1.0)
-                    * torch.tensor(float(n), dtype=torch.float32,
-                                   device=rho.device))
-    return k.to(torch.int64)
-
-
-def _rank_mask(a: torch.Tensor, rho) -> torch.Tensor:
-    """True for entries NOT among the floor(rho * n) smallest of ``a``.
-    A (C,) ``rho`` gives a (C, *a.shape) stack of masks."""
-    ranks = _ranks(a)
-    k = _prune_counts(rho, a.numel()).to(a.device)
-    return ranks >= k.reshape(k.shape + (1,) * a.dim())
+BLOCK = 128
 
 
 def magnitude_prune(w: torch.Tensor, rho) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
     """Zero the smallest-|w| rho-fraction of entries (Eq. 12-13)."""
-    mask = _rank_mask(w.to(torch.float32).abs(), rho)
+    mask = ops.rank_mask(w.to(torch.float32).abs(), rho)
     return w * mask.to(w.dtype), mask
+
+
+def _exempt(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return x, torch.ones(x.shape, dtype=torch.bool, device=x.device)
 
 
 def magnitude_prune_pytree(w: Tree, rho) -> Tuple[Tree, Tree]:
@@ -63,9 +56,94 @@ def magnitude_prune_pytree(w: Tree, rho) -> Tuple[Tree, Tree]:
     pruned, masks = {}, {}
     for name, x in w.items():
         if x.dim() < 2:
-            pruned[name] = x
-            masks[name] = torch.ones(x.shape, dtype=torch.bool,
-                                     device=x.device)
+            pruned[name], masks[name] = _exempt(x)
         else:
             pruned[name], masks[name] = magnitude_prune(x, rho)
     return pruned, masks
+
+
+# --------------------------------------------------------------------------- #
+# Block-structured pruning
+# --------------------------------------------------------------------------- #
+def tileable(w: torch.Tensor, block: int = BLOCK) -> bool:
+    return (w.dim() >= 2 and w.shape[-2] % block == 0
+            and w.shape[-1] % block == 0)
+
+
+def _rows(w: torch.Tensor) -> torch.Tensor:
+    """The leaf as a contiguous (prod(leading) * M, N) matrix."""
+    return w.reshape(-1, w.shape[-1]).contiguous()
+
+
+def _tile_grid(shape, block: int) -> Tuple[int, ...]:
+    return tuple(shape[:-2]) + (shape[-2] // block, shape[-1] // block)
+
+
+def block_importance(w: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
+    """L2 norm per (block x block) tile of the last two dims, f32
+    (..., tr, tc); through the ``block_norms`` kernel."""
+    return block_norms(_rows(w), (block, block)).reshape(
+        _tile_grid(w.shape, block))
+
+
+def block_prune(w: torch.Tensor, rho, block: int = BLOCK
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero the smallest-L2 rho-fraction of tiles of a tileable leaf.
+    Returns (pruned, tile_mask (C?, ..., tr, tc))."""
+    pruned, mask = ops.block_prune_2d(_rows(w), rho, (block, block))
+    lead = tuple(mask.shape[:-2])              # (C,) for a per-client rho
+    return (pruned.reshape(lead + tuple(w.shape)),
+            mask.reshape(lead + _tile_grid(w.shape, block)))
+
+
+def prune_pytree(w: Tree, rho, block: int = BLOCK) -> Tuple[Tree, Tree]:
+    """Block-prune tileable leaves; magnitude-prune other >= 2-D leaves;
+    EXEMPT 1-D leaves (norm scales, biases). Returns (pruned, masks):
+    tile masks for tileable leaves, element masks for the others."""
+    pruned, masks = {}, {}
+    for name, x in w.items():
+        if x.dim() < 2:
+            pruned[name], masks[name] = _exempt(x)
+        elif tileable(x, block):
+            pruned[name], masks[name] = block_prune(x, rho, block)
+        else:
+            pruned[name], masks[name] = magnitude_prune(x, rho)
+    return pruned, masks
+
+
+def gate_pytree(grads: Tree, masks: Tree, block: int = BLOCK) -> Tree:
+    """Pruned coordinates are neither trained nor uploaded (Eq. 32): each
+    stacked (C, ...) gradient times its per-client mask, as the
+    reference's ``g * mask.astype(g.dtype)``. A tile mask (as many dims as
+    g, another shape) goes through the masking kernel, one launch per leaf
+    for all C clients; an element mask, or an exempt leaf's shared
+    all-ones mask, is multiplied."""
+    out = {}
+    for name, g in grads.items():
+        mask = masks[name]
+        if mask.dim() == g.dim() and tuple(mask.shape) != tuple(g.shape):
+            c = g.shape[0]
+            gated = apply_block_mask(
+                g.reshape(c, -1, g.shape[-1]).contiguous(),
+                mask.reshape(c, -1, mask.shape[-1]).contiguous(),
+                (block, block))
+            out[name] = gated.reshape(g.shape)
+        else:
+            out[name] = g * mask.to(g.dtype)
+    return out
+
+
+def element_masks(w: Tree, masks: Tree, block: int = BLOCK) -> Tree:
+    """``prune_pytree``'s masks as element masks of the pruned leaves'
+    shapes (the reference ``prune_pytree``'s form)."""
+    out = {}
+    for name, m in masks.items():
+        lead = tuple(m.shape[:m.dim() - w[name].dim()])
+        if tuple(m.shape) == lead + tuple(w[name].shape):
+            out[name] = m
+            continue
+        grid = m.reshape(lead + _tile_grid(w[name].shape, block))
+        full = grid[..., :, None, :, None].expand(
+            grid.shape[:-2] + (grid.shape[-2], block, grid.shape[-1], block))
+        out[name] = full.reshape(lead + tuple(w[name].shape))
+    return out

@@ -71,13 +71,14 @@ def range_sq_sum(g: Tree, *, client_axis: bool = False) -> torch.Tensor:
     is (C, ...) and the result is (C,), one sum per client."""
     total = None
     for x in g.values():
-        a = x.to(torch.float32).abs()
+        a = x.abs()          # exact in x's dtype: min/max cast exactly
         if client_axis:
             flat = a.reshape(a.shape[0], -1)
-            r = flat.amax(dim=1) - flat.amin(dim=1)
+            r = (flat.amax(dim=1).to(torch.float32)
+                 - flat.amin(dim=1).to(torch.float32))
             size = float(flat.shape[1])
         else:
-            r = a.max() - a.min()
+            r = a.max().to(torch.float32) - a.min().to(torch.float32)
             size = float(a.numel())
         term = r * r * size
         total = term if total is None else total + term

@@ -207,6 +207,7 @@ class FedRunner:
 
         self._step = make_fl_train_step(
             model, self.opt, self.num_devices, prune=scheme.uses_prune,
+            prune_kind="magnitude",
             compressor=scheme.compressor(uniforms=uniforms))
         self.comp_state = self._step.init_comp_state(self.params)
 

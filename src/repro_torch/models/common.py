@@ -1,51 +1,180 @@
-"""Parameter initialization and the loss shared by the port's models.
+"""Parameter specs and initialization, and the numerics shared by the
+port's models.
 
-Held against ``repro.models.common`` (``cross_entropy_loss`` and the
-``"normal"`` / ``"ones"`` / ``"zeros"`` init recipes of ``_init_leaf``).
-Initialization draws from an explicit ``torch.Generator``; it gives other
-numbers than the reference's jax keys for the same seed, so tests carry
-weights across with ``repro_torch.models.convert`` instead.
+Held against ``repro.models.common``: ``ParamSpec`` (shape, init recipe,
+scale, dtype; bfloat16 unless a model asks for another), the
+``"normal"`` / ``"embed"`` / ``"uniform"`` / ``"ones"`` / ``"zeros"``
+inits, ``stack_specs``, ``param_count_tree``, ``rms_norm``,
+``layer_norm``, ``apply_norm``, ``norm_specs``, ``activation``,
+``rope_tables``, ``apply_rope`` and ``cross_entropy_loss``. The
+reference's logical sharding axes and ``shard_hint`` are left out: the
+port runs on one card. Parameter trees are flat ``Dict[str, Tensor]``
+keyed by dotted paths in the reference's leaf order
+(``models.convert``).
+
+Initialization draws from an explicit ``torch.Generator``, leaf by leaf
+in that order; it gives other numbers than the reference's jax keys for
+the same seed, so tests carry weights across with ``models.convert``.
+Each dtype cast of the reference is mirrored: norms compute in float32
+and cast back, the rope tables are float32 and cast to the activations'
+dtype.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+
+Tree = Dict[str, torch.Tensor]
 
 
 @dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: str = "normal"          # normal | zeros | ones
+    init: str = "normal"          # normal | zeros | ones | embed | uniform
     scale: float = 1.0
+    dtype: torch.dtype = torch.bfloat16
 
 
 def _fan_in(shape: Tuple[int, ...]) -> int:
     if len(shape) == 1:
         return shape[0]
-    # contraction dim convention: second-to-last (HWIO convs: cin)
+    # contraction dim convention: second-to-last (HWIO convs: cin;
+    # matrices and layer stacks: the input width)
     return shape[-2]
 
 
 def init_leaf(spec: ParamSpec, generator: torch.Generator,
-              device: torch.device) -> torch.Tensor:
+              device: Optional[torch.device] = None) -> torch.Tensor:
+    """One leaf from its recipe: draws in float32 on the generator's
+    device, scales, casts to ``spec.dtype``, moves to ``device``."""
+    device = generator.device if device is None else device
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, device=device)
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
-        return torch.ones(spec.shape, device=device)
-    if spec.init == "normal":
-        std = spec.scale / math.sqrt(max(_fan_in(spec.shape), 1))
-        x = torch.randn(spec.shape, generator=generator,
-                        device=generator.device, dtype=torch.float32)
-        return (x * std).to(device)
-    raise ValueError(f"unknown init {spec.init!r}")
+        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+
+    def normal():
+        return torch.randn(spec.shape, generator=generator,
+                           device=generator.device, dtype=torch.float32)
+
+    if spec.init == "embed":
+        x = normal() * spec.scale
+    elif spec.init == "normal":
+        x = normal() * (spec.scale / math.sqrt(max(_fan_in(spec.shape), 1)))
+    elif spec.init == "uniform":
+        x = torch.empty(spec.shape, device=generator.device,
+                        dtype=torch.float32).uniform_(
+            -spec.scale, spec.scale, generator=generator)
+    else:
+        raise ValueError(f"unknown init {spec.init!r}")
+    return x.to(spec.dtype).to(device)
+
+
+def init_params(specs: Dict[str, ParamSpec], generator: torch.Generator,
+                device: Optional[torch.device] = None) -> Tree:
+    """Fresh parameters, drawn leaf by leaf in the specs' order."""
+    return {name: init_leaf(spec, generator, device)
+            for name, spec in specs.items()}
+
+
+def stack_specs(n_layers: int, specs: Dict[str, ParamSpec]
+                ) -> Dict[str, ParamSpec]:
+    """Prepend a stacked 'layers' axis to every spec."""
+    return {k: ParamSpec((n_layers,) + s.shape, s.init, s.scale, s.dtype)
+            for k, s in specs.items()}
+
+
+def param_count_tree(specs: Dict[str, ParamSpec]) -> int:
+    return int(sum(math.prod(s.shape) for s in specs.values()))
+
+
+def subtree(tree: Dict, prefix: str) -> Dict:
+    """The entries under ``prefix`` (e.g. ``"attn."``), prefix removed."""
+    n = len(prefix)
+    return {k[n:]: v for k, v in tree.items() if k.startswith(prefix)}
+
+
+# --------------------------------------------------------------------------- #
+# Common numerics
+# --------------------------------------------------------------------------- #
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * gamma.to(torch.float32)).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * gamma.to(torch.float32)
+            + beta.to(torch.float32)).to(x.dtype)
+
+
+def apply_norm(cfg, x: torch.Tensor, p: Tree, prefix: str = ""
+               ) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p[prefix + "gamma"], p[prefix + "beta"])
+    return rms_norm(x, p[prefix + "gamma"])
+
+
+def norm_specs(cfg, d: int) -> Dict[str, ParamSpec]:
+    s = {"gamma": ParamSpec((d,), "ones")}
+    if cfg.norm == "layernorm":
+        s["beta"] = ParamSpec((d,), "zeros")
+    return s
+
+
+def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu2":
+        return lambda x: torch.square(F.relu(x))
+    if name == "relu":
+        return F.relu
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def rope_tables(seq_len: int, head_dim: int, theta: float, offset: int = 0,
+                device: Optional[torch.device] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rotary embedding cos/sin tables of shape (seq_len, head_dim/2),
+    computed in float32 as the reference does."""
+    half = head_dim // 2
+    expo = torch.arange(half, dtype=torch.float32, device=device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                         device=device), expo)
+    pos = torch.arange(offset, offset + seq_len, dtype=torch.float32,
+                       device=device)
+    ang = pos[:, None] * freqs[None, :]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); cos/sin: (seq, head_dim/2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., :, None, :].to(x.dtype)
+    s = sin[..., :, None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
 def cross_entropy_loss(logits: torch.Tensor,
                        labels: torch.Tensor) -> torch.Tensor:
-    """Mean cross-entropy in f32. logits (..., V), labels (...)."""
+    """Mean cross-entropy in f32. logits (..., V), labels (...). The gold
+    logit is gathered (the reference's one-hot contraction picks the same
+    entry)."""
     lf = logits.to(torch.float32)
     logz = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.to(torch.int64)[..., None])[..., 0]

@@ -8,7 +8,14 @@ flattens the tree: dict keys sorted, list entries by index. That order is
 the leaf order every per-leaf loop follows (uniform draws, range sums).
 Layouts are the reference's (HWIO convolutions), so values cross over
 unchanged. Neither function needs jax: the tree comes in as numpy arrays,
-e.g. ``jax.tree_util.tree_map(np.asarray, params)``.
+e.g. ``jax.tree_util.tree_map(np.asarray, params)``; nested dicts (the
+transformer's ``layers.attn.wq``) flatten the same way.
+
+bfloat16: ``np.asarray`` of a jax bfloat16 array has the ``bfloat16``
+extension dtype, which ``torch.from_numpy`` rejects, so such a leaf
+crosses as its 16-bit pattern and is viewed back as ``torch.bfloat16``
+(exact). The other way, a bfloat16 tensor comes out as float32 (exact):
+numpy has no bfloat16 of its own.
 """
 from __future__ import annotations
 
@@ -42,10 +49,17 @@ def _walk(tree: Any, prefix: str) -> Iterator[Tuple[str, Any]]:
         yield prefix[:-1], tree
 
 
+def _to_torch(leaf: Any) -> torch.Tensor:
+    arr = np.array(leaf, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def params_from_numpy(tree: Any, device: Optional[torch.device] = None
                       ) -> Tree:
     """Reference parameter tree (numpy leaves) -> the port's parameters."""
-    return {name: torch.from_numpy(np.array(leaf, copy=True)).to(device)
+    return {name: _to_torch(leaf).to(device)
             for name, leaf in _walk(tree, "")}
 
 
@@ -58,7 +72,10 @@ def params_to_numpy(params: Tree) -> Any:
         parts = name.split(".")
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = value.detach().cpu().numpy()
+        value = value.detach().cpu()
+        if value.dtype == torch.bfloat16:
+            value = value.to(torch.float32)
+        node[parts[-1]] = value.numpy()
 
     def listify(node):
         if not isinstance(node, dict):

@@ -120,14 +120,16 @@ class ResNet(nn.Module):
         specs = {}
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
+            shape, f32 = tuple(p.shape), torch.float32
             if leaf == "gamma":
-                specs[name] = ParamSpec(tuple(p.shape), "ones")
+                specs[name] = ParamSpec(shape, "ones", dtype=f32)
             elif leaf in ("beta", "head_b"):
-                specs[name] = ParamSpec(tuple(p.shape), "zeros")
+                specs[name] = ParamSpec(shape, "zeros", dtype=f32)
             elif name == "head_w":
-                specs[name] = ParamSpec(tuple(p.shape), "normal")
+                specs[name] = ParamSpec(shape, "normal", dtype=f32)
             else:
-                specs[name] = ParamSpec(tuple(p.shape), "normal", scale=1.4)
+                specs[name] = ParamSpec(shape, "normal", scale=1.4,
+                                        dtype=f32)
         return in_leaf_order(specs)
 
     def init(self, generator: torch.Generator,

@@ -66,3 +66,26 @@ def test_launcher_defaults_to_cuda_and_runs_on_the_cpu_when_asked():
     assert out.returncode == 0, out.stderr
     rounds = [l for l in out.stdout.splitlines() if l.startswith("[ltfl]")]
     assert len(rounds) == 2 and "recv=" in rounds[-1]
+
+
+def _datacenter(*args):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "granite-8b", "--smoke", "--steps", "2", *args], env=env,
+        capture_output=True, text=True, timeout=300)
+
+
+def test_datacenter_launcher_defaults_to_cuda_and_runs_on_the_cpu_when_asked():
+    import torch
+    if not torch.cuda.is_available():
+        out = _datacenter()
+        assert out.returncode != 0
+        assert "no CUDA device" in out.stderr
+    out = _datacenter("--device", "cpu")
+    assert out.returncode == 0, out.stderr
+    steps = [l for l in out.stdout.splitlines() if l.startswith("step=")]
+    assert len(steps) == 2
+    assert "loss=" in steps[-1] and "clients_received=" in steps[-1]
+    assert "2 layers, d_model 256, 1574144 parameters" in out.stdout

@@ -110,6 +110,7 @@ def test_round_step_matches_reference(world):
                             jax.random.PRNGKey(seed))
 
     step = make_fl_train_step(ResNet(port_resnet_config()), sgd(LR), C,
+                              prune_kind="magnitude",
                               compressor=ltfl_quantizer(
                                   uniforms=jax_uniforms))
     params = params_from_numpy(tree)

@@ -94,3 +94,38 @@ def jax_uniforms(seed, n_clients, shapes):
 
 def tree_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def jax_drop_uniforms(seed, n_clients):
+    """The reference step's in-step packet-drop draw for round seed
+    ``seed``: ``uniform(keys[-1], (C,))`` where ``keys`` splits the round
+    key into C + 1 (``repro.core.ltfl_step``)."""
+    keys = jax.random.split(jax.random.PRNGKey(seed), n_clients + 1)
+    return torch.from_numpy(np.array(jax.random.uniform(keys[-1],
+                                                        (n_clients,))))
+
+
+def lm_arch():
+    """granite-8b at ``reduce_for_smoke`` widths (2 layers, d_model 256,
+    4 heads, d_ff 512, vocab 512) on both sides."""
+    from repro.configs import get_arch as ref_get_arch
+    from repro.configs import reduce_for_smoke as ref_reduce
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    return (ref_reduce(ref_get_arch("granite-8b")),
+            reduce_for_smoke(get_arch("granite-8b")))
+
+
+def lm_weights(seed=0):
+    """Initial decoder-LM weights as the reference's numpy tree (float32
+    values, each exactly a bfloat16 value), made with the port's
+    initializer and handed to both sides."""
+    from repro_torch.models import DecoderLM
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    return params_to_numpy(DecoderLM(lm_arch()[1]).init(gen))
+
+
+def as_jax(tree, dtype):
+    """A numpy tree as jax arrays of ``dtype``."""
+    import jax.numpy as jnp
+    return jax.tree_util.tree_map(lambda x: jnp.asarray(x, dtype), tree)
