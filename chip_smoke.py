@@ -52,7 +52,30 @@ Phases; any failure exits non-zero before the result lines:
 10. timing: each block kernel, its plain version and the one-call
    PyTorch equivalent (``library_ms``) with CUDA events, at the largest
    leaf (embed.tok, 49152 x 4096) and over a step's 9 leaves, eager and
-   graph-replayed, beside the bound (bytes over 3.35 TB/s).
+   graph-replayed, beside the bound (bytes over 3.35 TB/s);
+11. ``block_sparse_matmul`` vs its plain version, float32 and bfloat16:
+   tests/test_kernels.py's shapes and densities (float32 within its
+   1e-4), and x (1024, K) against each of granite-8b's 8 projection
+   shapes at its published widths with tile masks from
+   ``ops.block_prune_2d(w, 0.25, block=(128, 128))`` (float32 within
+   2 K 2^-24 (|x| |w|), the bound on two float32 sums of K products in
+   different orders; bfloat16 within one bf16 ulp on all but 1e-3 of
+   the elements, and within one ulp plus that float32 bound on all); a
+   fully masked product is exact zeros. Then this slice's main path,
+   ``ops.pruned_matmul`` at (1024, 4096) x (4096, 14336) bf16, with every
+   launch count set to 0 just before: ``block_norms``,
+   ``apply_block_mask`` and ``block_sparse_matmul`` launch once each and
+   the result equals the plain path's;
+12. the paper's four baselines (``fedsgd``, ``signsgd``, ``fedmp``,
+   ``stc``) through ``FedRunner`` at phase 5's full width and settings,
+   3 rounds each: every loss finite, 0 quantizer launches, STC's
+   residual finite; round times and peak device memory are printed;
+13. timing: ``block_sparse_matmul``, its plain version and the library
+   call (bf16 cuBLAS ``x @ w`` on the pre-masked weight) at each of the
+   8 full-width shapes and summed over them, eager and graph-replayed,
+   beside the bound: the live tiles' 2 M bk bn operations over the bf16
+   tensor-core peak (989 TFLOP/s), or x, the live tiles of w, the
+   output and the mask over 3.35 TB/s, whichever is more.
 
 ``--profile DIR`` also writes torch.profiler tables of one edge round
 (``DIR/profile_round.txt``) and one datacenter step
@@ -73,7 +96,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 SRC = HERE / "src"
-KERNELS = ["stochastic_quant", "block_prune"]   # csrc/<name>.cu, built
+KERNELS = ["stochastic_quant", "block_prune",   # csrc/<name>.cu, built
+           "block_sparse_matmul"]
 C = 30                                  # clients (U) on the edge main path
 DC_CLIENTS = 4                          # clients on the datacenter path
 DC_LAYERS = 2                           # granite-8b's 36 layers cut to 2
@@ -81,6 +105,10 @@ DC_STEPS = 3
 DC_RHO = (0.25, 0.1, 0.5, 0.9)          # per-client cuts in phases 7, 10
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM, published, 700 W
 F32_FLOPS = 67e12                       # H100 SXM non-tensor-core float32
+BF16_FLOPS = 989e12                     # H100 SXM dense bf16 tensor cores
+BSMM_TOKENS = 1024                      # datacenter step: 4 x 2 x 128
+BSMM_RHO = 0.25                         # the launcher's default
+BASELINES = ("fedsgd", "signsgd", "fedmp", "stc")
 QUANT_FLOPS_PER_ELEM = 10               # abs, sub, div, floor, sub, cmp,
                                         # add, clip (2), mul-add (2)
 
@@ -701,9 +729,9 @@ def phase_datacenter(profile_dir):
     return total, peak, records
 
 
-def _bound(n_bytes: float, n_ops: float):
+def _bound(n_bytes: float, n_ops: float, peak_flops: float = F32_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_FLOPS * 1e3
+    t_ops = n_ops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -812,6 +840,299 @@ def phase_block_timing(mats, block: int = 32):
         f"{json.dumps(res)}")
     return res
 
+def bsmm_shapes():
+    """granite-8b's 8 projection matrices at its published widths, (K, N)
+    by leaf name, read from the model's parameter specs."""
+    from repro_torch.models import DecoderLM
+    names = ("layers.attn.wq", "layers.attn.wk", "layers.attn.wv",
+             "layers.attn.wo", "layers.ffn.wi_gate", "layers.ffn.wi_up",
+             "layers.ffn.wo", "embed.head")
+    specs = DecoderLM(dc_arch()).param_specs()
+    return {n.split(".", 1)[-1] if n.startswith("layers.") else n:
+            tuple(specs[n].shape[-2:]) for n in names}
+
+
+def _bsmm_full_inputs(shapes, dtype, seed):
+    """Per shape: x (1024, K) ~ N(0, 1), w (K, N) ~ N(0, 0.02^2) in
+    ``dtype`` on the card, and the tile mask of block_prune_2d at rho
+    0.25, 128 x 128 blocks."""
+    import torch
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    out = {}
+    for name, (k, n) in shapes.items():
+        x = torch.randn(BSMM_TOKENS, k, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(k, n, generator=gen, device="cuda") * 0.02).to(dtype)
+        _, mask = ops.block_prune_2d(w, BSMM_RHO, block=(128, 128))
+        out[name] = (x, w, mask)
+    return out
+
+
+def _bsmm_compare(out, ref, x, w, mask, bk, bn, where):
+    """Kernel output against the plain version's; returns (max |diff|,
+    share of elements off by more than one bf16 ulp, or 0.0 in f32).
+
+    f32: within 2 K 2^-24 (|x| @ |w masked|) elementwise, the bound on
+    two float32 sums of the same K products in different orders.
+    bf16: both round such a sum once, so within one ulp on all but 1e-3
+    of the elements, and within one ulp plus that bound on all."""
+    import torch
+    from repro_torch.kernels.ref import block_sparse_matmul_ref
+    diff = (_f32(out) - _f32(ref)).abs()
+    k = x.shape[1]
+    bound = 2.0 * k * 2.0 ** -24 * _f32(block_sparse_matmul_ref(
+        x.abs().to(torch.float32), w.abs().to(torch.float32), mask, bk, bn))
+    if out.dtype == torch.float32:
+        if bool((diff > bound).any()):
+            fail(f"block_sparse_matmul f32 != plain beyond 2 K u |x||w| at "
+                 f"{where}: max {float(diff.max())}")
+        return float(diff.max()), 0.0
+    ulp = _bf16_ulp(_f32(ref))
+    share = float((diff > ulp).float().mean())
+    if share > 1e-3 or bool((diff > ulp + bound).any()):
+        fail(f"block_sparse_matmul bf16 != plain at {where}: {share} of "
+             f"elements beyond one ulp, max {float(diff.max())}")
+    return float(diff.max()), share
+
+
+def phase_bsmm_vs_plain():
+    """B4 against its plain version at the reference test's and the
+    full-width shapes, f32 and bf16; then the slice's main path,
+    ops.pruned_matmul, with the launch counts set to 0 just before.
+    Returns (largest |diff| in f32 at the reference shapes, largest
+    |diff| over all comparisons, the main path's launch counts, B4's
+    launches before this phase)."""
+    import torch
+    from repro_torch.kernels import block_prune, block_sparse_matmul, ops
+    from repro_torch.kernels.block_sparse_matmul import block_shape
+    from repro_torch.kernels.ref import block_norms_ref, \
+        block_sparse_matmul_ref
+
+    # the plain version's float32 matmul in full float32, as the kernel's
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel = block_sparse_matmul.block_sparse_matmul
+    # launches so far: the edge and datacenter paths (phases 1-10)
+    other_paths = block_sparse_matmul.LAUNCHES["block_sparse_matmul"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    worst_small, worst, n_checks = 0.0, 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, n, k in ((128, 128, 128), (256, 256, 512), (128, 384, 256)):
+            x = (torch.randn(m, k, generator=gen, device="cuda") / 8).to(dtype)
+            w = (torch.randn(k, n, generator=gen, device="cuda") / 8).to(dtype)
+            for density in (0.0, 0.5, 1.0):
+                mask = torch.rand(k // 128, n // 128, generator=gen,
+                                  device="cuda") < density
+                out = kernel(x, w, mask)
+                ref = block_sparse_matmul_ref(x, w, mask, 128, 128)
+                torch.cuda.synchronize()
+                where = f"{(m, n, k)} {str(dtype)[6:]} density {density}"
+                diff = float((_f32(out) - _f32(ref)).abs().max())
+                if density == 0.0 and not bool((out == 0).all()):
+                    fail(f"fully masked product not zero at {where}")
+                if dtype == torch.float32:
+                    if not torch.allclose(out, ref, rtol=1e-4, atol=1e-4):
+                        fail(f"block_sparse_matmul f32 != plain at {where}")
+                    worst_small = max(worst_small, diff)
+                else:
+                    _bsmm_compare(out, ref, x, w, mask, 128, 128, where)
+                worst = max(worst, diff)
+                n_checks += 1
+    shares = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name_dt = str(dtype)[6:]
+        for name, (x, w, mask) in _bsmm_full_inputs(
+                bsmm_shapes(), dtype, seed=17).items():
+            where = f"{name} (1024, {x.shape[1]}) x {tuple(w.shape)} {name_dt}"
+            out = kernel(x, w, mask)
+            ref = block_sparse_matmul_ref(x, w, mask, 128, 128)
+            torch.cuda.synchronize()
+            d, share = _bsmm_compare(out, ref, x, w, mask, 128, 128, where)
+            worst = max(worst, d)
+            shares[f"{name}_{name_dt}"] = share
+            n_checks += 1
+            del out, ref
+        torch.cuda.empty_cache()
+    # a fully masked product at full width: exact zeros
+    x = torch.randn(BSMM_TOKENS, 4096, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    w = torch.randn(4096, 4096, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    dead = torch.zeros(32, 32, dtype=torch.bool, device="cuda")
+    if not bool((kernel(x, w, dead) == 0).all()):
+        fail("fully masked full-width product is not zero")
+    log(f"[check] block_sparse_matmul: {n_checks} products (reference "
+        f"shapes x densities 0/0.5/1 and 8 full-width shapes, f32 and "
+        f"bf16) within tolerance: max |kernel - plain| f32 at the "
+        f"reference shapes {worst_small!r}, over all {worst!r}; bf16 "
+        f"share beyond one ulp by shape {json.dumps(shares)}; fully "
+        f"masked products exact zeros")
+
+    # the slice's main path: ops.pruned_matmul at the wi_gate shape
+    gen.manual_seed(19)
+    x = torch.randn(BSMM_TOKENS, 4096, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    w = (torch.randn(4096, 14336, generator=gen, device="cuda")
+         * 0.02).to(torch.bfloat16)
+    counters = (block_prune.LAUNCHES, block_sparse_matmul.LAUNCHES)
+    torch.cuda.synchronize()
+    for c in counters:
+        for key in c:
+            c[key] = 0
+    out = ops.pruned_matmul(x, w, BSMM_RHO)
+    torch.cuda.synchronize()
+    launches = {key: v for c in counters for key, v in c.items()}
+    want = {"block_norms": 1, "apply_block_mask": 1,
+            "block_sparse_matmul": 1}
+    if launches != want:
+        fail(f"pruned_matmul launches {launches}, want {want}")
+    _, bn, bk = block_shape(BSMM_TOKENS, 14336, 4096)
+    mask_ref = ops.rank_mask(block_norms_ref(w, bk, bn), BSMM_RHO)
+    _, mask = ops.block_prune_2d(w, BSMM_RHO, block=(bk, bn))
+    if not torch.equal(mask, mask_ref):
+        fail("pruned_matmul: tile mask differs from the plain ranking")
+    ref = block_sparse_matmul_ref(x, w, mask_ref, bk, bn)
+    d, share = _bsmm_compare(out, ref, x, w, mask_ref, bk, bn,
+                             "pruned_matmul")
+    worst = max(worst, d)
+    log(f"[bsmm] pruned_matmul (1024, 4096) x (4096, 14336) bf16, rho "
+        f"{BSMM_RHO}: launches={launches} (block_sparse_matmul launched "
+        f"{other_paths} times on the edge and datacenter paths), "
+        f"{int(mask.sum())}/{mask.numel()} live tiles, max |diff| {d!r}, "
+        f"share beyond one ulp {share!r}, finite "
+        f"{bool(torch.isfinite(out).all())}")
+    if not bool(torch.isfinite(out).all()):
+        fail("pruned_matmul output not finite")
+    del x, w, out, ref
+    torch.cuda.empty_cache()
+    return worst_small, worst, launches, other_paths
+
+
+def phase_baselines():
+    """FedSGD, SignSGD, FedMP and STC through FedRunner at phase 5's
+    full width and settings, 3 rounds each."""
+    import torch
+    from repro_torch.configs import LTFLConfig, ResNetConfig
+    from repro_torch.data import ArrayDataset, synthetic_cifar
+    from repro_torch.fed import ALL_SCHEMES, FedRunner
+    from repro_torch.kernels import block_prune, block_sparse_matmul, \
+        stochastic_quant
+    from repro_torch.models import ResNet
+
+    imgs, labels = synthetic_cifar(20000, seed=0)
+    timgs, tlabels = synthetic_cifar(2000, seed=1)
+    train = ArrayDataset({"images": imgs, "labels": labels})
+    test = ArrayDataset({"images": timgs, "labels": tlabels})
+    model = ResNet(ResNetConfig())
+    counters = (stochastic_quant.LAUNCHES, block_prune.LAUNCHES,
+                block_sparse_matmul.LAUNCHES)
+    out = {}
+    for name in BASELINES:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = model.init(gen)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            for key in c:
+                c[key] = 0
+        runner = FedRunner(model, params, LTFLConfig(), train, test,
+                           ALL_SCHEMES[name](), batch_size=50, seed=0,
+                           eval_every=1, device="cuda")
+        walls, losses = [], []
+        for rnd in range(3):
+            torch.cuda.synchronize()
+            t = time.time()
+            rec = runner.run_round(rnd)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t)
+            losses.append(rec.train_loss)
+            log(f"[baseline] {name} round {rnd}: loss={rec.train_loss!r} "
+                f"acc={rec.test_acc!r} delay={rec.delay!r}s "
+                f"energy={rec.energy!r}J received={rec.received}/{C} "
+                f"rho_mean={rec.rho_mean!r} wall={walls[-1]!r}s")
+            if not math.isfinite(rec.train_loss):
+                fail(f"{name} round {rnd}: loss {rec.train_loss}")
+        peak = torch.cuda.max_memory_allocated()
+        launches = {key: v for c in counters for key, v in c.items()}
+        if any(launches.values()):
+            fail(f"{name}: kernel launches {launches}, want none")
+        if not all(bool(torch.isfinite(v).all())
+                   for v in runner.params.values()):
+            fail(f"{name}: non-finite weights after 3 rounds")
+        if name == "stc" and not all(bool(torch.isfinite(v).all())
+                                     for v in runner.comp_state.values()):
+            fail("stc: non-finite residual")
+        log(f"[baseline] {name}: round_wall_s={walls} "
+            f"max_memory_allocated={peak} bytes launches={launches}")
+        out[name] = {"round_wall_s": walls, "losses": losses,
+                     "max_memory_allocated": peak}
+        del runner, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bsmm_timing():
+    """CUDA-event times of B4, its plain version and the library call at
+    the 8 full-width bf16 shapes, each alone and summed (eager and
+    graph-replayed), beside the bound for this run's live tiles."""
+    import torch
+    from repro_torch.kernels.block_sparse_matmul import block_sparse_matmul
+    from repro_torch.kernels.ref import apply_block_mask_ref, \
+        block_sparse_matmul_ref
+    shapes = bsmm_shapes()
+    inputs = _bsmm_full_inputs(shapes, torch.bfloat16, seed=23)
+    masked = {k: apply_block_mask_ref(w, m, 128, 128)
+              for k, (x, w, m) in inputs.items()}
+    # the library call computes the same function: check it once
+    x, w, m = inputs["attn.wq"]
+    lib = torch.matmul(x, masked["attn.wq"])
+    ref = block_sparse_matmul_ref(x, w, m, 128, 128)
+    _bsmm_compare(lib, ref, x, w, m, 128, 128, "library call")
+    fns = {
+        "kernel": lambda k: block_sparse_matmul(*inputs[k]),
+        "plain": lambda k: block_sparse_matmul_ref(*inputs[k], 128, 128),
+        "library": lambda k: torch.matmul(inputs[k][0], masked[k]),
+    }
+    res, per_shape = {}, {}
+    for label, fn in fns.items():
+        for k in shapes:
+            per_shape.setdefault(k, {})[f"{label}_ms"] = cuda_ms(
+                lambda: fn(k), 3)
+
+        def all_shapes():
+            for k in shapes:
+                fn(k)
+
+        res[f"{label}_eager_ms"] = cuda_ms(all_shapes, 3)
+        res[f"{label}_ms"] = graph_ms(all_shapes, 3)
+        torch.cuda.empty_cache()
+    tot_bytes = tot_ops = 0.0
+    for k, (x, w, m) in inputs.items():
+        live = int(m.sum())
+        n_bytes = (x.numel() * 2 + live * 128 * 128 * 2
+                   + BSMM_TOKENS * w.shape[1] * 2 + m.numel())
+        n_ops = 2.0 * BSMM_TOKENS * 128 * 128 * live
+        per_shape[k]["bound_ms"], per_shape[k]["bound_by"] = _bound(
+            n_bytes, n_ops, BF16_FLOPS)
+        per_shape[k]["live_tiles"] = live
+        per_shape[k]["tiles"] = m.numel()
+        per_shape[k]["live_tflop"] = n_ops / 1e12
+        tot_bytes += n_bytes
+        tot_ops += n_ops
+    res["bound_ms"], res["bound_by"] = _bound(tot_bytes, tot_ops, BF16_FLOPS)
+    res["live_tflop"] = tot_ops / 1e12
+    res["bytes"] = tot_bytes
+    res["kernel_tflops"] = tot_ops / (res["kernel_ms"] * 1e-3) / 1e12
+    res["per_shape"] = per_shape
+    del inputs, masked
+    torch.cuda.empty_cache()
+    log(f"[timing] block_sparse_matmul (bf16, x 1024 rows, rho "
+        f"{BSMM_RHO}, 128 x 128 blocks, 8 shapes): {json.dumps(res)}")
+    return res
+
 
 def main() -> None:
     import torch
@@ -852,6 +1173,10 @@ def main() -> None:
     phase_small_datacenter()
     dc_launches, _, _ = phase_datacenter(profile_dir)
     bt = phase_block_timing(mats)
+    bsmm_err_small, bsmm_err, bsmm_launches, bsmm_other = \
+        phase_bsmm_vs_plain()
+    phase_baselines()
+    st = phase_bsmm_timing()
     log(f"[done] {time.time() - t_start:.1f} s")
 
     def block_row(name, key, launches, err, extra):
@@ -910,7 +1235,29 @@ def main() -> None:
                       "gate_eager_ms": bt["gate_step_kernel_eager_ms"],
                       "gate_largest_leaf_ms":
                           bt["gate_largest_kernel_ms"],
-                  })]
+                  }), {
+        "name": "block_sparse_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/block_sparse_matmul.cu",
+        "replaces": "src/repro/kernels/block_sparse_matmul.py:45",
+        "launches": bsmm_launches["block_sparse_matmul"],
+        "edge_and_datacenter_launches": bsmm_other,
+        "max_abs_err": bsmm_err,
+        "max_abs_err_f32_reference_shapes": bsmm_err_small,
+        "ms": st["kernel_ms"],
+        "plain_ms": st["plain_ms"],
+        "bound_ms": st["bound_ms"],
+        "bound_by": st["bound_by"],
+        "library_ms": st["library_ms"],
+        "eager_ms": st["kernel_eager_ms"],
+        "plain_eager_ms": st["plain_eager_ms"],
+        "library_eager_ms": st["library_eager_ms"],
+        "largest_leaf_ms": st["per_shape"]["embed.head"]["kernel_ms"],
+        "largest_leaf_plain_ms": st["per_shape"]["embed.head"]["plain_ms"],
+        "largest_leaf_library_ms":
+            st["per_shape"]["embed.head"]["library_ms"],
+        "largest_leaf_bound_ms": st["per_shape"]["embed.head"]["bound_ms"],
+    }]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Gradient compressor stages for the round step (``core.ltfl_step``).
 
 Held against ``repro.core.compressors`` (``Compressor``,
-``identity_compressor``, ``ltfl_quantizer``). A ``Compressor`` maps the
+``identity_compressor``, ``ltfl_quantizer``, ``sign_compressor``,
+``stc_compressor``, ``get_compressor``). A ``Compressor`` maps the
 STACKED (C, ...) per-client gradient dict to what goes over the air,
 optionally carrying per-client state, plus a server-side transform of
 the aggregate. The reference vmaps ``compress`` over clients; here it
@@ -25,6 +26,12 @@ on granite-8b's widths at 2 layers and 4 clients). ``uniforms`` replaces
 that draw: a callable ``(seed, n_clients, shapes) -> iterable of tensors
 (C, *shape), one per leaf`` — the parity tests feed the reference's own
 draws through it.
+
+The paper's Section-6.1 baselines: FedSGD and FedMP upload full
+precision (``identity_compressor``), SignSGD the sign with a server
+majority vote (``sign_compressor``), STC sparse ternary codes with an
+error-feedback residual (``stc_compressor``). None of them draws random
+numbers.
 """
 from __future__ import annotations
 
@@ -100,3 +107,72 @@ def ltfl_quantizer(*, uniforms: Optional[UniformSource] = None
         return out, state
 
     return Compressor(name="ltfl", compress=compress)
+
+
+def sign_compressor(lr_scale: float = 0.02) -> Compressor:
+    """SignSGD: sign(g) on the uplink (1 bit a coordinate); the server
+    signs the aggregate and scales it by ``lr_scale`` (majority vote)."""
+
+    def compress(g: Tree, delta: torch.Tensor, seed: int, state):
+        return {k: torch.sign(x) for k, x in g.items()}, state
+
+    def server_transform(agg: Tree) -> Tree:
+        return {k: (torch.sign(x) * lr_scale).to(x.dtype)
+                for k, x in agg.items()}
+
+    return Compressor(name="sign", compress=compress,
+                      server_transform=server_transform)
+
+
+def stc_compressor(sparsity: float = 0.01) -> Compressor:
+    """Sparse ternary compression with a carried error-feedback residual.
+
+    The state is one (C, ...) float32 residual per leaf. Per client and
+    leaf: acc = g + residual; keep the k = max(int(sparsity * leaf size),
+    1) largest |acc| (every entry >= the k-th largest, so ties keep all
+    equal entries); send sign(acc) * mu on the kept entries, mu the mean
+    kept magnitude; the residual becomes acc minus what was sent."""
+
+    def init_state(params: Tree, n_clients: int) -> Tree:
+        return {k: torch.zeros((n_clients,) + tuple(p.shape),
+                               dtype=torch.float32, device=p.device)
+                for k, p in params.items()}
+
+    def ternarize(acc: torch.Tensor) -> torch.Tensor:
+        """Row by row of the stacked (C, ...) leaf."""
+        a = acc.abs().reshape(acc.shape[0], -1)
+        k = max(int(sparsity * a.shape[1]), 1)
+        thresh = torch.topk(a, k, dim=1, sorted=False).values.amin(dim=1)
+        keep = (a >= thresh[:, None]).to(torch.float32)
+        mu = torch.sum(a * keep, dim=1) \
+            / torch.clamp(torch.sum(keep, dim=1), min=1.0)
+        tern = torch.sign(acc.reshape(a.shape)) * mu[:, None] * keep
+        return tern.reshape(acc.shape)
+
+    def compress(g: Tree, delta: torch.Tensor, seed: int, residual: Tree):
+        wire, new_residual = {}, {}
+        for k, x in g.items():
+            acc = x.to(torch.float32) + residual[k]
+            tern = ternarize(acc)
+            new_residual[k] = acc - tern
+            wire[k] = tern.to(x.dtype)
+        return wire, new_residual
+
+    return Compressor(name="stc", compress=compress, init_state=init_state)
+
+
+_REGISTRY = {
+    "none": identity_compressor,
+    "ltfl": ltfl_quantizer,
+    "sign": sign_compressor,
+    "stc": stc_compressor,
+}
+
+
+def get_compressor(spec, **kwargs) -> Compressor:
+    """A ``Compressor`` as given, or one made by name from the registry."""
+    if isinstance(spec, Compressor):
+        return spec
+    if spec in _REGISTRY:
+        return _REGISTRY[spec](**kwargs)
+    raise KeyError(f"unknown compressor {spec!r}; have {sorted(_REGISTRY)}")

@@ -4,10 +4,12 @@
   the Pallas TPU kernel ``repro.kernels.stochastic_quant.stochastic_quant_dyn``;
 * ``block_norms`` and ``apply_block_mask`` (CUDA C++,
   ``csrc/block_prune.cu``, wrappers in ``block_prune.py``) replace
-  ``repro.kernels.block_prune.block_norms`` and ``apply_block_mask``.
+  ``repro.kernels.block_prune.block_norms`` and ``apply_block_mask``;
+* ``block_sparse_matmul`` (CUDA C++, ``csrc/block_sparse_matmul.cu``)
+  replaces ``repro.kernels.block_sparse_matmul.block_sparse_matmul``.
 
-``block_sparse_matmul`` is not ported yet. Kernels build with nvcc at
-first use (``build.py``); nothing here builds or imports a compiler when
+Every Pallas kernel of the reference has its counterpart here. Kernels
+build with nvcc at first use (``build.py``); nothing here builds or imports a compiler when
 the package is imported. ``ref.py`` holds the plain versions, ``ops.py``
 the wrappers' public entry points.
 """

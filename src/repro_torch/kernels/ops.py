@@ -17,7 +17,11 @@ Held against ``repro.kernels.ops``:
   k = floor(clip(rho, 0, 1) * n) in float32 (an f64 product can give
   another k near an integer at n in the millions), ranks from one STABLE
   argsort inverted by a scatter of arange (the reference's double
-  argsort), so ties break by position.
+  argsort), so ties break by position;
+* ``block_sparse_matmul`` (lines 76-80) and ``pruned_matmul`` (lines
+  83-88): block-prune w at rho (tile norms, ranking, masking) and
+  multiply by the UNPRUNED w under the tile mask, as the reference does;
+  the kernel's skip is what applies the pruning.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from repro_torch.kernels.block_prune import (
     apply_block_mask,
     block_norms,
 )
+from repro_torch.kernels import block_sparse_matmul as _bsmm
 from repro_torch.kernels.stochastic_quant import stochastic_quant
 
 
@@ -93,3 +98,18 @@ def block_prune_2d(w: torch.Tensor, rho, block=DEFAULT_BLOCK
     norms = block_norms(w, block)
     mask = rank_mask(norms, rho)
     return apply_block_mask(w, mask, block), mask
+
+
+def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
+                        blocks=_bsmm.DEFAULT_BLOCKS) -> torch.Tensor:
+    """x @ w skipping the pruned (bk, bn) tiles of w; blocks = (bm, bn,
+    bk)."""
+    return _bsmm.block_sparse_matmul(x, w, mask, blocks=blocks)
+
+
+def pruned_matmul(x: torch.Tensor, w: torch.Tensor, rho: float,
+                  blocks=_bsmm.DEFAULT_BLOCKS) -> torch.Tensor:
+    """Block-prune w at ratio rho with (bk, bn) tiles, then the
+    block-sparse product with the unpruned w and the tile mask."""
+    _, mask = block_prune_2d(w, rho, block=(blocks[2], blocks[1]))
+    return block_sparse_matmul(x, w, mask, blocks=blocks)

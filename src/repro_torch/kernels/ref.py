@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the hand-written kernels (the oracles).
 
 Held against ``repro.kernels.ref`` (``stochastic_quant_ref``,
-``block_norms_ref``, ``apply_block_mask_ref``). Each function here
+``block_norms_ref``, ``apply_block_mask_ref``,
+``block_sparse_matmul_ref``). Each function here
 computes what its kernel computes, in separate PyTorch ops (no fused
 multiply-add) and with the kernel's accumulation, so the CPU tests can
 hold it to the JAX reference and the card check can hold the kernel to
@@ -65,3 +66,20 @@ def apply_block_mask_ref(w: torch.Tensor, mask: torch.Tensor, bm: int,
     t = w.reshape(w.shape[:-2] + (m // bm, bm, n // bn, bn))
     out = t * mask[..., :, None, :, None].to(w.dtype)
     return out.reshape(out.shape[:-4] + (m, n))
+
+
+def block_sparse_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                            mask: torch.Tensor, bk: int,
+                            bn: int) -> torch.Tensor:
+    """x (M, K) @ w (K, N) with the (bk x bn) tiles of w whose entry of
+    mask (K/bk, N/bn) is 0 zeroed; the product in float32, cast to
+    x.dtype.
+
+    w is masked by a multiply (``apply_block_mask_ref``, mask nonzero =
+    live), as the reference's oracle does, whereas the kernel skips dead
+    tiles: a NaN or inf inside a dead tile of w reaches this result
+    (NaN * 0) and not the kernel's. The reference's kernel and oracle
+    differ in the same way, so the two are compared on finite inputs."""
+    wm = apply_block_mask_ref(w, mask != 0, bk, bn)
+    return torch.matmul(x.to(torch.float32),
+                        wm.to(torch.float32)).to(x.dtype)

@@ -11,6 +11,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 IMPORT_RE = re.compile(r"^\s*(from|import)\s+(jax|repro)\b", re.M)
@@ -65,6 +67,15 @@ def test_launcher_defaults_to_cuda_and_runs_on_the_cpu_when_asked():
     out = _launcher("--device", "cpu")
     assert out.returncode == 0, out.stderr
     rounds = [l for l in out.stdout.splitlines() if l.startswith("[ltfl]")]
+    assert len(rounds) == 2 and "recv=" in rounds[-1]
+
+
+@pytest.mark.parametrize("scheme", ["fedsgd", "signsgd", "fedmp", "stc"])
+def test_launcher_runs_the_baseline_schemes_on_the_cpu(scheme):
+    out = _launcher("--device", "cpu", "--scheme", scheme)
+    assert out.returncode == 0, out.stderr
+    rounds = [l for l in out.stdout.splitlines()
+              if l.startswith(f"[{scheme}]")]
     assert len(rounds) == 2 and "recv=" in rounds[-1]
 
 
