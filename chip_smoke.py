@@ -61,11 +61,16 @@ Phases; any failure exits non-zero before the result lines:
    2 K 2^-24 (|x| |w|), the bound on two float32 sums of K products in
    different orders; bfloat16 within one bf16 ulp on all but 1e-3 of
    the elements, and within one ulp plus that float32 bound on all); a
-   fully masked product is exact zeros. Then this slice's main path,
-   ``ops.pruned_matmul`` at (1024, 4096) x (4096, 14336) bf16, with every
-   launch count set to 0 just before: ``block_norms``,
-   ``apply_block_mask`` and ``block_sparse_matmul`` launch once each and
-   the result equals the plain path's;
+   fully masked product is exact zeros. Every product must take the path
+   ``kernel_path`` names, read from the per-path launch counts: bfloat16
+   at 128-multiples (the reference shapes and the 8 full-width ones)
+   ``wgmma``, float32 and the test file's odd-block shapes ((8, 3, 5);
+   (96, 60, 48) at blocks (32, 20, 16); (200, 300, 64) at (40, 30, 8))
+   ``simt``. Then this slice's main path, ``ops.pruned_matmul`` at
+   (1024, 4096) x (4096, 14336) bf16, with every launch count set to 0
+   just before: ``block_norms``, ``apply_block_mask`` and
+   ``block_sparse_matmul`` launch once each, the last on the ``wgmma``
+   path, and the result equals the plain path's;
 12. the paper's four baselines (``fedsgd``, ``signsgd``, ``fedmp``,
    ``stc``) through ``FedRunner`` at phase 5's full width and settings,
    3 rounds each: every loss finite, 0 quantizer launches, STC's
@@ -75,14 +80,20 @@ Phases; any failure exits non-zero before the result lines:
    8 full-width shapes and summed over them, eager and graph-replayed,
    beside the bound: the live tiles' 2 M bk bn operations over the bf16
    tensor-core peak (989 TFLOP/s), or x, the live tiles of w, the
-   output and the mask over 3.35 TB/s, whichever is more.
+   output and the mask over 3.35 TB/s, whichever is more; then a sweep
+   of the pruning ratio at wi_gate (1024 x 4096 x 14336; rho 0, 0.25,
+   0.5, 0.75, 0.9): B4 and dense bf16 cuBLAS graph-replayed beside B4's
+   bound, which gives the rho at which skipping beats the dense call.
 
 ``--profile DIR`` also writes torch.profiler tables of one edge round
 (``DIR/profile_round.txt``) and one datacenter step
 (``DIR/profile_step.txt``).
 
 The last three lines are the ``kernels`` JSON, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+limit, and ``{"ok": true, "device": {...}}``. The ``block_sparse_matmul``
+row also carries its main-path launches by path (``path``), the paths of
+phase 11's products (``check_paths``), its rate on live work
+(``kernel_tflops``) and the rho sweep.
 """
 from __future__ import annotations
 
@@ -108,6 +119,7 @@ F32_FLOPS = 67e12                       # H100 SXM non-tensor-core float32
 BF16_FLOPS = 989e12                     # H100 SXM dense bf16 tensor cores
 BSMM_TOKENS = 1024                      # datacenter step: 4 x 2 x 128
 BSMM_RHO = 0.25                         # the launcher's default
+BSMM_SWEEP_RHO = (0.0, 0.25, 0.5, 0.75, 0.9)   # phase 13's sweep
 BASELINES = ("fedsgd", "signsgd", "fedmp", "stc")
 QUANT_FLOPS_PER_ELEM = 10               # abs, sub, div, floor, sub, cmp,
                                         # add, clip (2), mul-add (2)
@@ -911,20 +923,37 @@ def phase_bsmm_vs_plain():
 
     # the plain version's float32 matmul in full float32, as the kernel's
     torch.backends.cuda.matmul.allow_tf32 = False
-    kernel = block_sparse_matmul.block_sparse_matmul
+    counts = block_sparse_matmul.LAUNCHES
+    by_path = {"wgmma": 0, "simt": 0}
+
+    def kernel(x, w, mask, want, blocks=(128, 128, 128)):
+        """B4 on the card; fails unless it took path ``want``."""
+        before = dict(counts)
+        out = block_sparse_matmul.block_sparse_matmul(x, w, mask, blocks)
+        took = [p for p in by_path if counts[f"block_sparse_matmul_{p}"]
+                == before[f"block_sparse_matmul_{p}"] + 1]
+        if took != [want] or counts["block_sparse_matmul"] != \
+                before["block_sparse_matmul"] + 1:
+            fail(f"block_sparse_matmul at x {tuple(x.shape)} w "
+                 f"{tuple(w.shape)} {x.dtype} blocks {blocks} took {took}, "
+                 f"want [{want!r}]")
+        by_path[want] += 1
+        return out
+
     # launches so far: the edge and datacenter paths (phases 1-10)
-    other_paths = block_sparse_matmul.LAUNCHES["block_sparse_matmul"]
+    other_paths = counts["block_sparse_matmul"]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
     worst_small, worst, n_checks = 0.0, 0.0, 0
     for dtype in (torch.float32, torch.bfloat16):
+        want = "wgmma" if dtype == torch.bfloat16 else "simt"
         for m, n, k in ((128, 128, 128), (256, 256, 512), (128, 384, 256)):
             x = (torch.randn(m, k, generator=gen, device="cuda") / 8).to(dtype)
             w = (torch.randn(k, n, generator=gen, device="cuda") / 8).to(dtype)
             for density in (0.0, 0.5, 1.0):
                 mask = torch.rand(k // 128, n // 128, generator=gen,
                                   device="cuda") < density
-                out = kernel(x, w, mask)
+                out = kernel(x, w, mask, want)
                 ref = block_sparse_matmul_ref(x, w, mask, 128, 128)
                 torch.cuda.synchronize()
                 where = f"{(m, n, k)} {str(dtype)[6:]} density {density}"
@@ -939,13 +968,35 @@ def phase_bsmm_vs_plain():
                     _bsmm_compare(out, ref, x, w, mask, 128, 128, where)
                 worst = max(worst, diff)
                 n_checks += 1
+        # the test file's odd shapes: blocks that clamp, straddle or do
+        # not fit the wgmma tile take simt in both dtypes
+        for (m, n, k), blocks in (((8, 3, 5), (128, 128, 128)),
+                                  ((96, 60, 48), (32, 20, 16)),
+                                  ((200, 300, 64), (40, 30, 8))):
+            x = (torch.randn(m, k, generator=gen, device="cuda") / 8).to(dtype)
+            w = (torch.randn(k, n, generator=gen, device="cuda") / 8).to(dtype)
+            _, bn, bk = block_shape(m, n, k, blocks)
+            mask = torch.rand(k // bk, n // bn, generator=gen,
+                              device="cuda") < 0.5
+            out = kernel(x, w, mask, "simt", blocks)
+            ref = block_sparse_matmul_ref(x, w, mask, bk, bn)
+            torch.cuda.synchronize()
+            where = f"{(m, n, k)} blocks {blocks} {str(dtype)[6:]}"
+            if dtype == torch.float32:
+                if not torch.allclose(out, ref, rtol=1e-4, atol=1e-4):
+                    fail(f"block_sparse_matmul f32 != plain at {where}")
+            else:
+                _bsmm_compare(out, ref, x, w, mask, bk, bn, where)
+            worst = max(worst, float((_f32(out) - _f32(ref)).abs().max()))
+            n_checks += 1
     shares = {}
     for dtype in (torch.float32, torch.bfloat16):
         name_dt = str(dtype)[6:]
+        want = "wgmma" if dtype == torch.bfloat16 else "simt"
         for name, (x, w, mask) in _bsmm_full_inputs(
                 bsmm_shapes(), dtype, seed=17).items():
             where = f"{name} (1024, {x.shape[1]}) x {tuple(w.shape)} {name_dt}"
-            out = kernel(x, w, mask)
+            out = kernel(x, w, mask, want)
             ref = block_sparse_matmul_ref(x, w, mask, 128, 128)
             torch.cuda.synchronize()
             d, share = _bsmm_compare(out, ref, x, w, mask, 128, 128, where)
@@ -960,14 +1011,16 @@ def phase_bsmm_vs_plain():
     w = torch.randn(4096, 4096, generator=gen,
                     device="cuda").to(torch.bfloat16)
     dead = torch.zeros(32, 32, dtype=torch.bool, device="cuda")
-    if not bool((kernel(x, w, dead) == 0).all()):
+    if not bool((kernel(x, w, dead, "wgmma") == 0).all()):
         fail("fully masked full-width product is not zero")
     log(f"[check] block_sparse_matmul: {n_checks} products (reference "
-        f"shapes x densities 0/0.5/1 and 8 full-width shapes, f32 and "
-        f"bf16) within tolerance: max |kernel - plain| f32 at the "
-        f"reference shapes {worst_small!r}, over all {worst!r}; bf16 "
-        f"share beyond one ulp by shape {json.dumps(shares)}; fully "
-        f"masked products exact zeros")
+        f"shapes x densities 0/0.5/1, the odd-block shapes and 8 "
+        f"full-width shapes, f32 and bf16) within tolerance: max |kernel "
+        f"- plain| f32 at the reference shapes {worst_small!r}, over all "
+        f"{worst!r}; bf16 share beyond one ulp by shape "
+        f"{json.dumps(shares)}; fully masked products exact zeros; "
+        f"paths {json.dumps(by_path)} (bf16 at 128-multiples wgmma, f32 "
+        f"and the odd shapes simt, as kernel_path says)")
 
     # the slice's main path: ops.pruned_matmul at the wi_gate shape
     gen.manual_seed(19)
@@ -984,7 +1037,8 @@ def phase_bsmm_vs_plain():
     torch.cuda.synchronize()
     launches = {key: v for c in counters for key, v in c.items()}
     want = {"block_norms": 1, "apply_block_mask": 1,
-            "block_sparse_matmul": 1}
+            "block_sparse_matmul": 1, "block_sparse_matmul_wgmma": 1,
+            "block_sparse_matmul_simt": 0}
     if launches != want:
         fail(f"pruned_matmul launches {launches}, want {want}")
     _, bn, bk = block_shape(BSMM_TOKENS, 14336, 4096)
@@ -1006,7 +1060,7 @@ def phase_bsmm_vs_plain():
         fail("pruned_matmul output not finite")
     del x, w, out, ref
     torch.cuda.empty_cache()
-    return worst_small, worst, launches, other_paths
+    return worst_small, worst, launches, other_paths, by_path
 
 
 def phase_baselines():
@@ -1126,12 +1180,60 @@ def phase_bsmm_timing():
     res["live_tflop"] = tot_ops / 1e12
     res["bytes"] = tot_bytes
     res["kernel_tflops"] = tot_ops / (res["kernel_ms"] * 1e-3) / 1e12
+    for k, row in per_shape.items():
+        row["kernel_tflops"] = row["live_tflop"] / (row["kernel_ms"] * 1e-3)
     res["per_shape"] = per_shape
     del inputs, masked
     torch.cuda.empty_cache()
     log(f"[timing] block_sparse_matmul (bf16, x 1024 rows, rho "
         f"{BSMM_RHO}, 128 x 128 blocks, 8 shapes): {json.dumps(res)}")
+    res["rho_sweep"] = _bsmm_rho_sweep()
     return res
+
+
+def _bsmm_rho_sweep():
+    """B4 against dense bf16 cuBLAS at wi_gate (1024 x 4096 x 14336) as
+    the pruning ratio rises: graph-replayed ms of each beside B4's bound
+    for that rho's live tiles, and the kernel's result held to the plain
+    version's. Returns one row per rho."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.block_sparse_matmul import block_sparse_matmul
+    from repro_torch.kernels.ref import apply_block_mask_ref, \
+        block_sparse_matmul_ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    k, n = 4096, 14336
+    x = torch.randn(BSMM_TOKENS, k, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    w = (torch.randn(k, n, generator=gen, device="cuda")
+         * 0.02).to(torch.bfloat16)
+    rows = []
+    for rho in BSMM_SWEEP_RHO:
+        _, mask = ops.block_prune_2d(w, rho, block=(128, 128))
+        masked = apply_block_mask_ref(w, mask, 128, 128)
+        _bsmm_compare(block_sparse_matmul(x, w, mask),
+                      block_sparse_matmul_ref(x, w, mask, 128, 128), x, w,
+                      mask, 128, 128, f"rho sweep {rho}")
+        live = int(mask.sum())
+        n_bytes = (x.numel() * 2 + live * 128 * 128 * 2
+                   + BSMM_TOKENS * n * 2 + mask.numel())
+        bound, by = _bound(n_bytes, 2.0 * BSMM_TOKENS * 128 * 128 * live,
+                           BF16_FLOPS)
+        row = {"rho": rho, "live_tiles": live, "tiles": mask.numel(),
+               "kernel_ms": graph_ms(
+                   lambda: block_sparse_matmul(x, w, mask), 20),
+               "bound_ms": bound, "bound_by": by,
+               "dense_cublas_ms": graph_ms(lambda: torch.matmul(x, masked),
+                                           20)}
+        row["kernel_over_dense"] = row["kernel_ms"] / row["dense_cublas_ms"]
+        rows.append(row)
+        log(f"[sweep] block_sparse_matmul wi_gate rho {rho}: "
+            f"{json.dumps(row)}")
+        del masked
+    del x, w
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> None:
@@ -1173,7 +1275,7 @@ def main() -> None:
     phase_small_datacenter()
     dc_launches, _, _ = phase_datacenter(profile_dir)
     bt = phase_block_timing(mats)
-    bsmm_err_small, bsmm_err, bsmm_launches, bsmm_other = \
+    bsmm_err_small, bsmm_err, bsmm_launches, bsmm_other, bsmm_checks = \
         phase_bsmm_vs_plain()
     phase_baselines()
     st = phase_bsmm_timing()
@@ -1257,6 +1359,13 @@ def main() -> None:
         "largest_leaf_library_ms":
             st["per_shape"]["embed.head"]["library_ms"],
         "largest_leaf_bound_ms": st["per_shape"]["embed.head"]["bound_ms"],
+        "path": {"wgmma": bsmm_launches["block_sparse_matmul_wgmma"],
+                 "simt": bsmm_launches["block_sparse_matmul_simt"]},
+        "check_paths": bsmm_checks,
+        "kernel_tflops": st["kernel_tflops"],
+        "rho_sweep": [{key: r[key] for key in (
+            "rho", "kernel_ms", "bound_ms", "dense_cublas_ms")}
+            for r in st["rho_sweep"]],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -27,8 +27,17 @@ DEFAULT_BLOCKS = (128, 128, 128)           # bm, bn, bk
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DIM = 2 ** 31 - 1
 
-# kernel launches in this process (the card check resets and reads them)
-LAUNCHES = {"block_sparse_matmul": 0}
+# the wgmma path's units (csrc/block_sparse_matmul.cu): one K step of x
+# and w per shared-memory stage, the output tile's N, the mask rows a
+# block's live list holds
+WGMMA_K_STEP = 64
+WGMMA_TILE_N = 128
+WGMMA_MAX_MASK_ROWS = 4096
+
+# kernel launches in this process (the card check resets and reads them):
+# the total and one count per path
+LAUNCHES = {"block_sparse_matmul": 0, "block_sparse_matmul_wgmma": 0,
+            "block_sparse_matmul_simt": 0}
 
 
 def _library() -> ctypes.CDLL:
@@ -36,7 +45,8 @@ def _library() -> ctypes.CDLL:
     lib.block_sparse_matmul_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int)]
     lib.block_sparse_matmul_launch.restype = ctypes.c_int
     return lib
 
@@ -52,6 +62,29 @@ def block_shape(m: int, n: int, k: int, blocks=DEFAULT_BLOCKS
         raise ValueError(f"blocks {tuple(blocks)} do not tile M, N, K = "
                          f"{(m, n, k)}")
     return bm, bn, bk
+
+
+def kernel_path(m: int, n: int, k: int, bk: int, bn: int,
+                dtype: torch.dtype, aligned: bool = True) -> str:
+    """The kernel's path for x (m, k) @ w (k, n) at blocks (bk, bn):
+    "wgmma" for a bfloat16 product whose bk is a multiple of the 64-deep
+    K step, whose bn is a multiple of the 128-wide output tile (so a
+    tile's columns share one mask column), whose mask has at most 4096
+    rows (the block's live list) and whose x and w start on 16 bytes
+    (``aligned``, TMA's base alignment); "simt" otherwise. Blocks that
+    tile (k, n) then make k and n multiples of 64 and 128, so the rows of
+    x and w are multiples of 16 bytes, TMA's stride unit (N = 3 or 60
+    clamps bn below 128 and goes to "simt"). float32 always takes "simt":
+    the reference's product is full float32, and wgmma offers only TF32.
+    m does not enter: rows past m are TMA zero fill."""
+    del m, n
+    if dtype != torch.bfloat16:
+        return "simt"
+    if bk % WGMMA_K_STEP or bn % WGMMA_TILE_N:
+        return "simt"
+    if k // bk > WGMMA_MAX_MASK_ROWS or not aligned:
+        return "simt"
+    return "wgmma"
 
 
 def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
@@ -88,13 +121,23 @@ def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"M, N, K = {(m, n, k)} out of range")
     live = (mask != 0).to(torch.uint8).contiguous()
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    want = kernel_path(m, n, k, bk, bn, x.dtype,
+                       aligned=x.data_ptr() % 16 == 0
+                       and w.data_ptr() % 16 == 0)
     fn = _library().block_sparse_matmul_launch
+    taken = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), live.data_ptr(), out.data_ptr(),
-                 m, n, k, bk, bn, _DTYPES[x.dtype], stream)
+                 m, n, k, bk, bn, _DTYPES[x.dtype], stream,
+                 ctypes.byref(taken))
     if err != 0:
-        raise RuntimeError(f"block_sparse_matmul launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"block_sparse_matmul launch failed ({want} "
+                           f"path): CUDA error {err}")
+    path = {1: "wgmma", 0: "simt"}.get(taken.value)
+    if path != want:
+        raise RuntimeError(f"block_sparse_matmul took the {path} path, the "
+                           f"shape rule says {want}")
     LAUNCHES["block_sparse_matmul"] += 1
+    LAUNCHES[f"block_sparse_matmul_{path}"] += 1
     return out

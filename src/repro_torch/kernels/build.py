@@ -7,9 +7,12 @@ first use into its own shared library:
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so <name>.cu
 
 in ``_build/`` beside this file (listed in ``.gitignore``). The file name
-carries a hash of the source, so an edited source never loads a stale
-library; the compile writes to a temporary name and renames it into
-place, so a concurrent build never loads a half-written file. No
+carries a hash of the source and of every header in ``csrc/``
+(``*.cuh``), so an edited source or header never loads a stale library;
+the compile writes to a temporary name and renames it into place, so a
+concurrent build never loads a half-written file. No driver library is
+linked: a kernel that needs a driver call (``cuTensorMapEncodeTiled``)
+reaches it through ``cudaGetDriverEntryPoint``. No
 ``--use_fast_math``: the kernels' exactness against their plain versions
 depends on IEEE division and on no contraction into FMA. A missing
 ``nvcc``, a failed compile or a failed load raises.
@@ -50,11 +53,21 @@ def nvcc_path() -> str:
                        "card")
 
 
+def source_digest(src: Path) -> str:
+    """Hash of ``src`` and of every ``*.cuh`` beside it (name and bytes),
+    the part of the library's file name that changes with the source."""
+    h = hashlib.sha1(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return h.hexdigest()[:12]
+
+
 def build(name: str) -> Tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` unless a library for this exact source
     exists. Returns (library path, compiler output; empty when cached)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    digest = source_digest(src)
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib, ""
