@@ -85,9 +85,41 @@ Phases; any failure exits non-zero before the result lines:
    0.5, 0.75, 0.9): B4 and dense bf16 cuBLAS graph-replayed beside B4's
    bound, which gives the rho at which skipping beats the dense call.
 
+14. serving at small size, card against CPU: granite-8b, olmoe-1b-7b,
+   deepseek-v2-lite-16b (MLA) and phi-3-vision-4.2b (VLM) at
+   ``reduce_for_smoke`` widths in float32, the same weights and prompt
+   (2 x 48) on both: the prefill's logits (rel 1e-5) and cache (bf16, one
+   ulp on <= 1e-3 of its elements), and 9 greedy tokens through
+   ``repro_torch.launch.serve.generate`` (each side's decode logits rel
+   3e-4, the ids equal): tests/test_torch_serve.py's tolerances;
+15. serving granite-8b at its full published config (36 layers,
+   8,254,390,272 parameters by ``param_count()``, bf16, seed 0) through
+   ``generate``: batch 8 x prompt 2048 x 64 tokens, and batch 1 x prompt
+   32768 x 8 tokens, which must take the query-chunked attention path
+   (one call a layer; the first run none). Per run: prefill seconds and
+   TFLOP/s (the reference formulation's matmul work) against 989, the
+   median decode step by CUDA events against its bytes bound (the
+   weights it reads, the whole cache, over 3.35 TB/s), tok/s and the
+   peak memory. Then decode against forward: the decode step at position
+   2048 (batch 2) against ``forward`` over the same 2049 tokens, in bf16
+   and again with the same weights in float32: float32 within rel 1e-2
+   (the bf16 cache's rounding, tests/test_torch_mla.py's bound) on the
+   rows whose MoE routing agrees at every layer (a near-tie the cache's
+   rounding flips is counted), and the bf16 decode no farther from the
+   float32 forward than twice the bf16 forward is (its own bf16 noise);
+16. serving olmoe-1b-7b, deepseek-v2-lite-16b and phi-3-vision-4.2b at
+   their full published configs: batch 8 x prompt 2048 x 32 tokens, the
+   same numbers (the MoE bound counts the distinct experts the step's
+   tokens chose), and decode against forward as in phase 15 at batch 8,
+   position 63 (phi: 576 + 63), with capacity factor 16 for MoE
+   (prefill drops tokens, decode does not). No hand-written kernel lies on the serving path
+   (as in the reference): phases 14-16 must leave every ``LAUNCHES``
+   count as it was.
+
 ``--profile DIR`` also writes torch.profiler tables of one edge round
-(``DIR/profile_round.txt``) and one datacenter step
-(``DIR/profile_step.txt``).
+(``DIR/profile_round.txt``), one datacenter step
+(``DIR/profile_step.txt``) and one decode step of each serving run
+(``DIR/profile_decode_<arch>_<B>x<P>.txt``), with their idle shares.
 
 The last three lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. The ``block_sparse_matmul``
@@ -121,6 +153,19 @@ BSMM_TOKENS = 1024                      # datacenter step: 4 x 2 x 128
 BSMM_RHO = 0.25                         # the launcher's default
 BSMM_SWEEP_RHO = (0.0, 0.25, 0.5, 0.75, 0.9)   # phase 13's sweep
 BASELINES = ("fedsgd", "signsgd", "fedmp", "stc")
+SERVE_DEVICE = "cuda"
+SERVE_FAMILIES = ("granite-8b", "olmoe-1b-7b", "deepseek-v2-lite-16b",
+                  "phi-3-vision-4.2b")
+# phase 15: granite-8b (batch, prompt, tokens); the second prompt is past
+# CHUNKED_ATTN_THRESHOLD; decode vs forward at batch 2, position 2048
+SERVE_B = ((8, 2048, 64), (1, 32768, 8))
+SERVE_B_CHECK = (2, 2048)
+# phase 16: the other families at full width; decode vs forward at a
+# size whose tokens fit one MoE group of at most 512 on both calls (8 x
+# 63 tokens prefilled, 8 x 64 forward)
+SERVE_C = ((8, 2048, 32),)
+SERVE_C_CHECK = (8, 63)
+GRANITE_PARAMS = 8_254_689_280          # param_count() 8,254,390,272 + norms
 QUANT_FLOPS_PER_ELEM = 10               # abs, sub, div, floor, sub, cmp,
                                         # add, clip (2), mul-add (2)
 
@@ -1236,6 +1281,367 @@ def _bsmm_rho_sweep():
     return rows
 
 
+# --------------------------------------------------------------------------- #
+# Serving (phases 14-16): no hand-written kernel lies on this path
+# --------------------------------------------------------------------------- #
+def all_launches():
+    from repro_torch.kernels import block_prune, block_sparse_matmul, \
+        stochastic_quant
+    return {k: v for c in (stochastic_quant.LAUNCHES, block_prune.LAUNCHES,
+                           block_sparse_matmul.LAUNCHES)
+            for k, v in c.items()}
+
+
+def _rel(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def _cache_off(got, ref, noise: float) -> float:
+    """Share of cache elements that differ; fails past one bf16 ulp plus
+    ``noise`` times the largest |ref| (tests/torch_parity.py's rule)."""
+    worst = 0.0
+    for k in ref:
+        g, r = _f32(got[k]), _f32(ref[k])
+        tol = _bf16_ulp(r).maximum(_bf16_ulp(g)) + noise * float(r.abs().max())
+        if bool(((g - r).abs() > tol).any()):
+            fail(f"serve cache {k}: beyond one bf16 ulp")
+        worst = max(worst, float((g != r).float().mean()))
+    return worst
+
+
+def phase_serve_small() -> None:
+    """Each served family at reduce_for_smoke widths in float32 on the card
+    and on the CPU, same weights and prompt: prefill logits, its cache and
+    9 greedy tokens (8 decode steps) through ``launch.serve.generate``.
+    Tolerances of tests/test_torch_serve.py: prefill logits rel 1e-5, the
+    bf16 cache to one ulp (+1e-5 of its largest |value|) on <= 1e-3 of its
+    elements, each side's decode chain rel 3e-4, equal ids."""
+    import torch
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model, make_train_batch
+
+    for name in SERVE_FAMILIES:
+        arch = reduce_for_smoke(get_arch(name))
+        model = build_model(arch)
+        gen = torch.Generator()
+        gen.manual_seed(5)
+        init = {k: v.to(torch.float32) for k, v in model.init(gen).items()}
+        batch = make_train_batch(arch, 2, 48, gen)
+        batch.pop("labels")
+        out = {}
+        for dev in ("cpu", SERVE_DEVICE):
+            p = {k: v.to(dev) for k, v in init.items()}
+            b = {k: v.to(dev) for k, v in batch.items()}
+            with torch.inference_mode():
+                logits, cache = model.prefill(p, b)
+            res = generate(model, p, b, 9)
+            out[dev] = (logits.cpu(), {k: v.cpu() for k, v in cache.items()},
+                        res.tokens.cpu(), res.logits.cpu())
+        (lc, cc, tc, gc), (lg, cg, tg, gg) = out["cpu"], out[SERVE_DEVICE]
+        err = _rel(lg, lc)
+        if err > 1e-5:
+            fail(f"serve small {name}: prefill logits rel {err}")
+        off = _cache_off(cg, cc, 1e-5)
+        if off > 1e-3:
+            fail(f"serve small {name}: {off} of the cache differs")
+        steps = [_rel(gg[:, i], gc[:, i]) for i in range(1, gg.shape[1])]
+        if max(steps) > 3e-4:
+            fail(f"serve small {name}: decode logits rel {max(steps)}")
+        if not torch.equal(tg, tc):
+            fail(f"serve small {name}: ids {tg.tolist()} vs {tc.tolist()}")
+        log(f"[serve] small {name} float32, card vs cpu: prefill logits rel "
+            f"{err!r}, cache off-share {off!r}, decode logits rel max "
+            f"{max(steps)!r}, ids equal {tg[0].tolist()}")
+
+
+def _prefill_flops(cfg, B: int, S: int) -> float:
+    """Matmul operations of the reference formulation's prefill over B x S
+    tokens (S with the image tokens): projections (the cache entry's k/v
+    projected again), attention over the full S x S square (masked, not
+    skipped), the FFN (MoE: router, one-hot dispatch and combine, experts
+    over their capacity slots, shared experts) and the head."""
+    from repro_torch.models import moe as moe_mod
+    T, d, L = B * S, cfg.d_model, cfg.n_layers
+    h = cfg.n_heads
+    n_pre = cfg.moe.first_k_dense if cfg.moe else 0
+    if cfg.mla is not None:
+        m = cfg.mla
+        qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+        proj = d * h * qd + 2 * d * (m.kv_lora_rank + m.qk_rope_head_dim) \
+            + m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim) \
+            + h * m.v_head_dim * d
+        core = B * h * S * S * (qd + m.v_head_dim)
+    else:
+        kvw = cfg.n_kv_heads * cfg.head_dim
+        proj = 2 * d * h * cfg.head_dim + 4 * d * kvw
+        core = B * h * S * S * 2 * cfg.head_dim
+    glu = 3 if cfg.glu else 2
+    dense_ffn = glu * d * (cfg.moe.dense_d_ff if n_pre else cfg.d_ff) * T
+    flops = L * (2 * T * proj + 2 * core)
+    if cfg.moe is None:
+        flops += 2 * L * dense_ffn
+    else:
+        mo = cfg.moe
+        g = min(moe_mod.GROUP_SIZE, T)
+        G = T // g
+        C = moe_mod._capacity(g, mo.top_k, mo.num_experts,
+                              mo.capacity_factor)
+        # router; one-hot dispatch and combine; the experts over their
+        # capacity slots; the shared experts
+        moe_ffn = (T * d * mo.num_experts
+                   + 2 * G * g * mo.num_experts * C * d
+                   + G * mo.num_experts * C * glu * d * mo.d_expert
+                   + T * glu * d * mo.d_shared_expert
+                   * mo.num_shared_experts)
+        flops += 2 * (n_pre * dense_ffn + (L - n_pre) * moe_ffn)
+    return float(flops + 2 * T * d * cfg.vocab_size)
+
+
+def _decode_bytes(model, params, B: int, cache_len: int, experts) -> float:
+    """Bytes one decode step must move: every parameter but the token
+    table (B rows of it), the routed experts this step's tokens chose
+    (``experts``: per MoE layer, the distinct experts), the whole cache
+    read (the reference formulation reads every slot) and B new entries
+    written."""
+    n = 0.0
+    moe_leaves = ("ffn.w_gate", "ffn.w_up", "ffn.w_in", "ffn.w_down")
+    for k, v in params.items():
+        if k == "embed.tok":
+            n += B * v.shape[1] * v.element_size()
+        elif k.startswith("layers.") and k.endswith(moe_leaves):
+            per_expert = v[0, 0].numel() * v.element_size()
+            n += sum(experts) * per_expert
+        else:
+            n += v.numel() * v.element_size()
+    import torch
+    for shape, dt in model.cache_struct(B, cache_len).values():
+        row = math.prod(shape) // shape[2] \
+            * torch.empty((), dtype=dt).element_size()
+        n += row * shape[2] + row
+    return n
+
+
+def _routed(fn):
+    """Run ``fn``, recording the experts every MoE routing chose (the
+    top-k indices, one tensor a layer)."""
+    from repro_torch.models import moe as moe_mod
+    seen = []
+    inner = moe_mod._route
+
+    def recorded(p, x, k):
+        out = inner(p, x, k)
+        seen.append(out[2])
+        return out
+
+    moe_mod._route = recorded
+    try:
+        return fn(), seen
+    finally:
+        moe_mod._route = inner
+
+
+def _decode_and_forward(model, params, batch, p: int):
+    """Prefill the first p text tokens, splice the cache into one of
+    n_img + p + 1 slots, decode token p at position n_img + p; and
+    ``forward`` over the same p + 1 tokens. Returns both logits at that
+    position as float32 (B, V) and, per row, whether every MoE layer
+    routed the token to the same experts in both."""
+    import torch
+    cfg = model.cfg
+    n_img = cfg.num_image_tokens if cfg.family == "vlm" else 0
+    tokens = batch["tokens"][:, :p + 1]
+    B = tokens.shape[0]
+    with torch.inference_mode():
+        _, pc = model.prefill(params, dict(batch, tokens=tokens[:, :p]))
+        cache = model.init_cache(B, n_img + p + 1, tokens.device)
+        for k, v in cache.items():
+            v[:, :, :n_img + p] = pc[k]
+        del pc
+        pos = torch.full((B,), n_img + p, dtype=torch.int64,
+                         device=tokens.device)
+        (dec, _), dec_routes = _routed(
+            lambda: model.decode_step(params, tokens[:, p], pos, cache))
+        del cache
+        (full, _), fwd_routes = _routed(
+            lambda: model.forward(params, dict(batch, tokens=tokens)))
+        fwd = full[:, n_img + p].float()
+        del full
+    same = torch.ones(B, dtype=torch.bool, device=tokens.device)
+    for d, f in zip(dec_routes, fwd_routes):
+        f = f.reshape(B, n_img + p + 1, -1)[:, n_img + p]
+        same &= (d.sort(-1).values == f.sort(-1).values).all(-1)
+    return dec.float(), fwd, same
+
+
+def _to_f32_in_place(params) -> None:
+    """Every leaf as float32, one at a time (the bf16 one freed before the
+    next), so a 16 B-parameter model fits the card in float32."""
+    import torch
+    for k in list(params):
+        params[k] = params[k].to(torch.float32)
+        torch.cuda.empty_cache()
+
+
+def phase_serve_full(name: str, runs, check_p, profile_dir):
+    """``name`` at its full published config (bf16, seed 0) through
+    ``launch.serve.generate``: per run (batch, prompt, tokens) the
+    prefill time and rate, the decode steps by CUDA events against their
+    bytes bound, tok/s and the peak memory; prompts above
+    CHUNKED_ATTN_THRESHOLD must take the query-chunked path (one call a
+    layer) and the others not. Then decode against forward (at
+    ``check_p``; capacity factor 16 for MoE, where prefill drops tokens
+    and decode does not) and, with --profile, one profiled decode step."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model, layers, make_train_batch
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    arch = serve_arch(name)
+    model = build_model(arch)
+    gen = torch.Generator(device=SERVE_DEVICE)
+    gen.manual_seed(0)
+    t0 = time.time()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in params.values())
+    p_bytes = sum(v.numel() * v.element_size() for v in params.values())
+    log(f"[serve] {name}: {arch.n_layers} layers, d_model {arch.d_model}, "
+        f"{n_params} parameters ({p_bytes} bytes, param_count() "
+        f"{arch.param_count()}), init {time.time() - t0!r} s")
+    chunked = []
+    inner_chunked = layers._attend_chunked
+
+    def counted(qg, *a, **kw):
+        chunked.append(qg.shape[1])
+        return inner_chunked(qg, *a, **kw)
+
+    rows = []
+    n_img = arch.num_image_tokens if arch.family == "vlm" else 0
+    for B, P, n_gen in runs:
+        batch = make_train_batch(arch, B, P, gen)
+        batch.pop("labels")
+        chunked.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        layers._attend_chunked = counted
+        try:
+            res = generate(model, params, batch, n_gen)
+        finally:
+            layers._attend_chunked = inner_chunked
+        peak = torch.cuda.max_memory_allocated()
+        want = arch.n_layers if n_img + P > layers.CHUNKED_ATTN_THRESHOLD \
+            else 0
+        if len(chunked) != want:
+            fail(f"serve {name} {B}x{P}: {len(chunked)} chunked attention "
+                 f"calls, want {want}")
+        if not bool(torch.isfinite(res.logits.float()).all()):
+            fail(f"serve {name} {B}x{P}: non-finite logits")
+        if res.tokens.shape != (B, n_gen):
+            fail(f"serve {name}: tokens {tuple(res.tokens.shape)}")
+        cache_len = P + n_gen
+        # the next step (its token, the last free position): the routing
+        # count (MoE) and, with --profile, the trace
+        tok = res.tokens[:, -1]
+        pos = torch.full((B,), cache_len - 1, dtype=torch.int64,
+                         device=SERVE_DEVICE)
+        cache = res.cache
+
+        def one_step():
+            with torch.inference_mode():
+                model.decode_step(params, tok, pos, cache)
+
+        _, routes = _routed(one_step)
+        experts = [int(t.unique().numel()) for t in routes]
+        n_bytes = _decode_bytes(model, params, B, cache_len, experts)
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        flops = _prefill_flops(arch, B, n_img + P)
+        step_ms = sorted(res.step_ms)
+        med = step_ms[len(step_ms) // 2] if step_ms else float("nan")
+        row = {
+            "arch": name, "parameters": n_params, "batch": B, "prompt": P, "image_tokens": n_img,
+            "gen": n_gen, "prefill_s": res.prefill_s,
+            "prefill_tflop": flops / 1e12,
+            "prefill_tflops": flops / res.prefill_s / 1e12,
+            "prefill_share_of_989": flops / res.prefill_s / BF16_FLOPS,
+            "decode_s": res.decode_s,
+            "tok_per_s": (n_gen - 1) * B / res.decode_s,
+            "decode_step_ms_median": med,
+            "decode_step_ms_min": step_ms[0] if step_ms else None,
+            "decode_step_ms_max": step_ms[-1] if step_ms else None,
+            "decode_bytes": n_bytes, "decode_bound_ms": bound_ms,
+            "decode_bound_share": bound_ms / med,
+            "experts_read": sum(experts) if experts else None,
+            "max_memory_allocated": peak,
+            "chunked_attention_calls": len(chunked),
+        }
+        if profile_dir is not None:
+            profile_call(one_step, profile_dir / f"profile_decode_{name}_"
+                         f"{B}x{P}.txt", f"decode step {name} {B}x{P}")
+        del cache, res
+        torch.cuda.empty_cache()
+        log(f"[serve] {json.dumps(row)}")
+        rows.append(row)
+
+    # decode against forward, in bf16 and then (the same weights) float32
+    check_model = model
+    if arch.moe is not None:
+        check_model = build_model(arch.replace(moe=dataclasses.replace(
+            arch.moe, capacity_factor=16.0)))
+    B, p = check_p
+    batch = make_train_batch(arch, B, p + 1, gen)
+    batch.pop("labels")
+    dec16, fwd16, same16 = _decode_and_forward(check_model, params, batch,
+                                               p)
+    _to_f32_in_place(params)
+    dec32, fwd32, same32 = _decode_and_forward(check_model, params, batch,
+                                               p)
+    if not bool(same32.any()):
+        fail(f"serve {name}: float32 decode and forward route every row "
+             "differently")
+    check = {"position": n_img + p, "batch": B,
+             "f32_rows_routed_alike": int(same32.sum()),
+             "bf16_rows_routed_alike": int(same16.sum()),
+             "f32_rel": _rel(dec32[same32], fwd32[same32]),
+             "f32_rel_all_rows": _rel(dec32, fwd32),
+             "bf16_rel_to_f32_forward": _rel(dec16, fwd32),
+             "bf16_forward_rel_to_f32_forward": _rel(fwd16, fwd32),
+             "bf16_rel": _rel(dec16, fwd16),
+             "bf16_max_abs_diff": float((dec16 - fwd16).abs().max()),
+             "argmax_agree_bf16": int((dec16.argmax(-1)
+                                      == fwd16.argmax(-1)).sum()),
+             "argmax_agree_f32": int((dec32.argmax(-1)
+                                     == fwd32.argmax(-1)).sum())}
+    cf16 = ", capacity factor 16" if arch.moe else ""
+    log(f"[serve] {name} decode vs forward at position {n_img + p} (batch "
+        f"{B}, {n_img + p + 1} tokens{cf16}): {json.dumps(check)}")
+    # float32, over the rows every MoE layer routed alike in decode and
+    # forward: the bf16 cache's rounding only (tests/test_torch_mla.py's
+    # 1e-2); a near-tie that the cache's rounding flips moves a row's
+    # experts, and is counted, not held to it. bf16: the decode no
+    # farther from the float32 forward than twice the bf16 forward is
+    # (two bf16 computations of one function)
+    if check["f32_rel"] > 1e-2:
+        fail(f"serve {name}: float32 decode vs forward rel "
+             f"{check['f32_rel']}")
+    if check["bf16_rel_to_f32_forward"] > \
+            2 * check["bf16_forward_rel_to_f32_forward"]:
+        fail(f"serve {name}: bf16 decode lies farther from the float32 "
+             f"forward than twice the bf16 forward: {check}")
+    rows[0]["decode_vs_forward"] = check
+    del params, check_model, model
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_arch(name: str):
+    from repro_torch.configs import get_arch
+    return get_arch(name)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1279,6 +1685,21 @@ def main() -> None:
         phase_bsmm_vs_plain()
     phase_baselines()
     st = phase_bsmm_timing()
+    before = all_launches()
+    phase_serve_small()
+    serve_rows = phase_serve_full("granite-8b", SERVE_B, SERVE_B_CHECK,
+                                  profile_dir)
+    if serve_rows[0]["parameters"] != GRANITE_PARAMS:
+        fail(f"granite-8b served with {serve_rows[0]['parameters']} "
+             f"parameters, want {GRANITE_PARAMS}")
+    for name in SERVE_FAMILIES[1:]:
+        serve_rows += phase_serve_full(name, SERVE_C, SERVE_C_CHECK,
+                                       profile_dir)
+    if all_launches() != before:
+        fail(f"the serving phases launched hand-written kernels: "
+             f"{before} -> {all_launches()}")
+    log(f"[serve] kernel launches unchanged by phases 14-16: {before}")
+    log(f"[serve] summary {json.dumps(serve_rows)}")
     log(f"[done] {time.time() - t_start:.1f} s")
 
     def block_row(name, key, launches, err, extra):

@@ -1,16 +1,29 @@
 """Configurations, held against ``repro.configs``: Table 2, the paper's
 ResNet, and the architecture registry.
 
-``ARCHS`` holds the architectures the port can build (granite-8b, dense,
-and its sliding-window variant); the reference's other nine configs come
-with their model families. ``get_arch``, ``list_archs`` and
-``reduce_for_smoke`` behave as the reference's.
+``ARCHS`` holds the reference's ten architectures, with granite-8b's
+sliding-window variant in ``VARIANTS``. The port builds the dense, MoE
+and VLM families (seven of them); the SSM, hybrid and encoder-decoder
+configs (rwkv6-7b, zamba2-2.7b, whisper-medium) are here as data, and
+``models.build_model`` raises for their families. ``get_arch``,
+``list_archs`` and ``reduce_for_smoke`` behave as the reference's.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs import granite_8b
+from repro_torch.configs import (
+    deepseek_v2_lite_16b,
+    granite_8b,
+    mistral_large_123b,
+    nemotron_4_340b,
+    olmoe_1b_7b,
+    phi_3_vision_4_2b,
+    qwen1_5_32b,
+    rwkv6_7b,
+    whisper_medium,
+    zamba2_2_7b,
+)
 from repro_torch.configs.base import (
     SHAPES,
     ArchConfig,
@@ -27,7 +40,21 @@ from repro_torch.configs.ltfl_paper import (
     ResNetConfig,
 )
 
-ARCHS: Dict[str, ArchConfig] = {granite_8b.CONFIG.name: granite_8b.CONFIG}
+ARCHS: Dict[str, ArchConfig] = {
+    c.name: c
+    for c in (
+        qwen1_5_32b.CONFIG,
+        rwkv6_7b.CONFIG,
+        deepseek_v2_lite_16b.CONFIG,
+        nemotron_4_340b.CONFIG,
+        granite_8b.CONFIG,
+        whisper_medium.CONFIG,
+        olmoe_1b_7b.CONFIG,
+        zamba2_2_7b.CONFIG,
+        phi_3_vision_4_2b.CONFIG,
+        mistral_large_123b.CONFIG,
+    )
+}
 
 # Named variants (not part of the architecture grid; used where documented).
 VARIANTS: Dict[str, ArchConfig] = {

@@ -6,7 +6,8 @@ scale, dtype; bfloat16 unless a model asks for another), the
 ``"normal"`` / ``"embed"`` / ``"uniform"`` / ``"ones"`` / ``"zeros"``
 inits, ``stack_specs``, ``param_count_tree``, ``rms_norm``,
 ``layer_norm``, ``apply_norm``, ``norm_specs``, ``activation``,
-``rope_tables``, ``apply_rope`` and ``cross_entropy_loss``. The
+``rope_tables``, ``apply_rope``, ``apply_rope_at`` and
+``cross_entropy_loss``. The
 reference's logical sharding axes and ``shard_hint`` are left out: the
 port runs on one card. Parameter trees are flat ``Dict[str, Tensor]``
 keyed by dotted paths in the reference's leaf order
@@ -61,10 +62,12 @@ def init_leaf(spec: ParamSpec, generator: torch.Generator,
         return torch.randn(spec.shape, generator=generator,
                            device=generator.device, dtype=torch.float32)
 
+    # scaled in place: a stacked expert leaf at full width is ~5 G
+    # elements, so a second float32 copy would cost ~19 GB
     if spec.init == "embed":
-        x = normal() * spec.scale
+        x = normal().mul_(spec.scale)
     elif spec.init == "normal":
-        x = normal() * (spec.scale / math.sqrt(max(_fan_in(spec.shape), 1)))
+        x = normal().mul_(spec.scale / math.sqrt(max(_fan_in(spec.shape), 1)))
     elif spec.init == "uniform":
         x = torch.empty(spec.shape, device=generator.device,
                         dtype=torch.float32).uniform_(
@@ -145,18 +148,22 @@ def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     raise ValueError(f"unknown activation {name!r}")
 
 
+def _rope_freqs(head_dim: int, theta: float,
+                device: Optional[torch.device]) -> torch.Tensor:
+    half = head_dim // 2
+    expo = torch.arange(half, dtype=torch.float32, device=device) / half
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), expo)
+
+
 def rope_tables(seq_len: int, head_dim: int, theta: float, offset: int = 0,
                 device: Optional[torch.device] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rotary embedding cos/sin tables of shape (seq_len, head_dim/2),
     computed in float32 as the reference does."""
-    half = head_dim // 2
-    expo = torch.arange(half, dtype=torch.float32, device=device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=device), expo)
     pos = torch.arange(offset, offset + seq_len, dtype=torch.float32,
                        device=device)
-    ang = pos[:, None] * freqs[None, :]
+    ang = pos[:, None] * _rope_freqs(head_dim, theta, device)[None, :]
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -168,6 +175,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     c = cos[..., :, None, :].to(x.dtype)
     s = sin[..., :, None, :].to(x.dtype)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def apply_rope_at(x: torch.Tensor, pos: torch.Tensor, head_dim: int,
+                  theta: float) -> torch.Tensor:
+    """Rope for decode: x (batch, heads, head_dim), pos (batch,) int; the
+    angles in float32, cast to x's dtype (``apply_rope`` with the batch
+    in the place of the sequence)."""
+    ang = pos.to(torch.float32)[:, None] \
+        * _rope_freqs(head_dim, theta, x.device)[None, :]     # (B, half)
+    return apply_rope(x, torch.cos(ang), torch.sin(ang))
 
 
 def cross_entropy_loss(logits: torch.Tensor,

@@ -1,27 +1,36 @@
-"""Embeddings, grouped-query attention and MLPs of the transformer
-families.
+"""Embeddings, grouped-query attention (full-sequence, query-chunked and
+decode against a KV cache) and MLPs of the transformer families.
 
 Held against ``repro.models.layers``: ``embedding_specs``,
 ``embed_tokens``, ``lm_head``, ``attention_specs``, ``_project_qkv``,
-``_attend_full``, ``_causal_bias``, ``attend`` (the full path),
-``attention_train``, ``mlp_specs`` and ``mlp_apply``. Functions take a
-flat params dict of one component (``{"wq": ..., "wk": ...}``), as the
-reference's take its sub-dict. Layouts are the reference's (weights
-(in, out), activations (batch, seq, ...)), so weights carry across
-unchanged.
+``_attend_full``, ``_causal_bias``, ``attend`` (both paths),
+``attention_train``, ``attention_prefill_kv``, ``attention_decode``,
+``mlp_specs`` and ``mlp_apply``. Functions take a flat params dict of
+one component (``{"wq": ..., "wk": ...}``), as the reference's take its
+sub-dict. Layouts are the reference's (weights (in, out), activations
+(batch, seq, ...), the cache (batch, seq, kv_heads, head_dim)), so
+weights and caches carry across unchanged.
 
 Dtype flow follows the reference: projections run in the parameters'
 dtype; attention scores are cast to float32, scaled and masked there,
 and the softmax probabilities cast back; the rope tables are float32.
 
-Not ported yet: the query-chunked attention path (sequences above
-``CHUNKED_ATTN_THRESHOLD`` tokens raise), cross-attention and query
-offsets, decode and prefill with a KV cache, learned position
-embeddings.
+Above ``CHUNKED_ATTN_THRESHOLD`` query tokens ``attend`` takes the
+query-chunked path: chunks of ``gcd(sq, Q_CHUNK)`` queries, each against
+every key, in a Python loop (the reference's ``lax.map``) writing into
+one output, so no (sq, skv) score matrix exists at once.
+
+``attention_decode`` writes the new token's k/v into the cache it is
+given, in place, and returns that same cache (the reference returns an
+updated copy); with a sliding window the cache is a ring buffer.
+
+Not ported yet: cross-attention (the encoder-decoder family's) and
+learned position embeddings.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,13 +40,15 @@ from repro_torch.models.common import (
     ParamSpec,
     activation,
     apply_rope,
+    apply_rope_at,
     rope_tables,
 )
 
 Tree = Dict[str, torch.Tensor]
 NEG_INF = -1e30
-# the reference switches to query-chunked attention above this length
+# query-chunked attention kicks in above this sequence length
 CHUNKED_ATTN_THRESHOLD = 8192
+Q_CHUNK = 512
 
 
 # --------------------------------------------------------------------------- #
@@ -107,9 +118,9 @@ def _attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bkgqs,bskd->bqkgd", probs, v)
 
 
-def _causal_bias(sq: int, skv: int, window: int,
+def _causal_bias(sq: int, skv: int, q_offset: int, window: int,
                  device: Optional[torch.device] = None) -> torch.Tensor:
-    qpos = torch.arange(sq, device=device)[:, None]
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
     kpos = torch.arange(skv, device=device)[None, :]
     m = kpos <= qpos
     if window > 0:
@@ -117,25 +128,51 @@ def _causal_bias(sq: int, skv: int, window: int,
     return torch.where(m, 0.0, NEG_INF).to(torch.float32)
 
 
+def _attend_chunked(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, q_offset: int, window: int
+                    ) -> torch.Tensor:
+    """The query-chunked path: qg (B,Sq,KV,G,hd) in chunks of
+    gcd(Sq, Q_CHUNK) queries (VLM prefixes make Sq irregular), each
+    against every key. Returns (B,Sq,KV,G,hd_v)."""
+    B, sq, kv, groups, _ = qg.shape
+    qc_len = math.gcd(sq, Q_CHUNK)
+    if qc_len < 16:
+        raise ValueError(f"{sq} query tokens split into chunks of {qc_len} "
+                         f"(gcd with Q_CHUNK {Q_CHUNK}); the reference "
+                         "asserts at least 16")
+    out = torch.empty(B, sq, kv, groups, v.shape[-1], device=qg.device,
+                      dtype=torch.promote_types(qg.dtype, v.dtype))
+    for start in range(0, sq, qc_len):
+        bias = (_causal_bias(qc_len, k.shape[1], q_offset + start, window,
+                             qg.device) if causal else None)
+        out[:, start:start + qc_len] = _attend_full(
+            qg[:, start:start + qc_len], k, v, bias)
+    return out
+
+
 def attend(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
-           v: torch.Tensor, *, causal: bool) -> torch.Tensor:
-    """q (B,Sq,H,hd); k,v (B,Skv,KV,hd). Returns (B,Sq,H,hd_v)."""
+           v: torch.Tensor, *, causal: bool, q_offset: int = 0
+           ) -> torch.Tensor:
+    """Dispatch between full and query-chunked attention.
+
+    q (B,Sq,H,hd); k,v (B,Skv,KV,hd). Returns (B,Sq,H,hd_v) (hd_v may
+    differ from hd: MLA's qk 192, v 128)."""
     B, sq, H, hd = q.shape
     kv = k.shape[2]
-    if sq > CHUNKED_ATTN_THRESHOLD:
-        raise NotImplementedError(
-            f"{sq} query tokens: the query-chunked attention path (above "
-            f"{CHUNKED_ATTN_THRESHOLD}) is not ported yet")
     qg = q.reshape(B, sq, kv, H // kv, hd)
-    bias = (_causal_bias(sq, k.shape[1], cfg.sliding_window, q.device)
-            if causal else None)
-    out = _attend_full(qg, k, v, bias)
+    if sq <= CHUNKED_ATTN_THRESHOLD:
+        bias = (_causal_bias(sq, k.shape[1], q_offset, cfg.sliding_window,
+                             q.device) if causal else None)
+        out = _attend_full(qg, k, v, bias)
+    else:
+        out = _attend_chunked(qg, k, v, causal=causal, q_offset=q_offset,
+                              window=cfg.sliding_window)
     return out.reshape(B, sq, H, v.shape[-1])
 
 
 def attention_train(cfg: ArchConfig, p: Tree, x: torch.Tensor
                     ) -> torch.Tensor:
-    """Causal full-sequence self-attention for training."""
+    """Causal full-sequence self-attention for training and prefill."""
     q, k, v = _project_qkv(cfg, p, x)
     if cfg.pos_emb == "rope":
         cos, sin = rope_tables(x.shape[1], cfg.head_dim, cfg.rope_theta,
@@ -147,11 +184,82 @@ def attention_train(cfg: ArchConfig, p: Tree, x: torch.Tensor
     return out @ p["wo"]
 
 
+def attention_prefill_kv(cfg: ArchConfig, p: Tree, x: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The roped (k, v) pair for cache construction during prefill."""
+    _, k, v = _project_qkv(cfg, p, x)
+    if cfg.pos_emb == "rope":
+        cos, sin = rope_tables(k.shape[1], cfg.head_dim, cfg.rope_theta,
+                               device=x.device)
+        k = apply_rope(k, cos, sin)
+    return k, v
+
+
+def write_cache(cache: torch.Tensor, slot: torch.Tensor,
+                entry: torch.Tensor) -> None:
+    """cache[b, slot[b]] = entry[b], in place. A slot past the cache's end
+    leaves the cache as it is (the reference's scatter drops such a
+    write); no host sync."""
+    B, S = cache.shape[0], cache.shape[1]
+    rows = torch.arange(B, device=cache.device)
+    inside = (slot < S).reshape((B,) + (1,) * (entry.dim() - 1))
+    idx = slot.clamp(max=S - 1)
+    cache[rows, idx] = torch.where(inside, entry.to(cache.dtype),
+                                   cache[rows, idx])
+
+
+def attention_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     pos: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode against a KV cache.
+
+    x (B, D); cache_k/v (B, S_cache, KV, hd), written in place at each
+    row's slot and returned; pos (B,) absolute positions. With a sliding
+    window the cache is a ring buffer of length window: the slot is
+    pos % S_cache and the first min(pos + 1, S_cache) slots are valid.
+    Returns (y (B, D), cache_k, cache_v)."""
+    B = x.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cache_len = cache_k.shape[1]
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, h, hd)
+    k = k.reshape(B, kv, hd)
+    v = v.reshape(B, kv, hd)
+    if cfg.pos_emb == "rope":
+        q = apply_rope_at(q, pos, hd, cfg.rope_theta)
+        k = apply_rope_at(k, pos, hd, cfg.rope_theta)
+
+    slot = pos % cache_len if cfg.sliding_window else pos
+    write_cache(cache_k, slot, k)
+    write_cache(cache_v, slot, v)
+
+    qg = q.reshape(B, kv, h // kv, hd)
+    kk = cache_k.to(q.dtype)                                # (B, S, KV, hd)
+    vv = cache_v.to(q.dtype)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, kk).to(torch.float32)
+    scores = scores * (hd ** -0.5)
+    kpos = torch.arange(cache_len, device=x.device)[None, :]
+    if cfg.sliding_window:
+        valid = kpos < torch.clamp(pos + 1, max=cache_len)[:, None]
+    else:
+        valid = kpos <= pos[:, None]
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, vv).reshape(B, h * hd)
+    return out @ p["wo"], cache_k, cache_v
+
+
 # --------------------------------------------------------------------------- #
 # MLP
 # --------------------------------------------------------------------------- #
-def mlp_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_specs(cfg: ArchConfig, d_ff: Optional[int] = None
+              ) -> Dict[str, ParamSpec]:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     if cfg.glu:
         return {
             "wi_gate": ParamSpec((d, f), "normal"),

@@ -1,10 +1,11 @@
-"""Model factory and batch constructor.
+"""Model factory and batch constructors.
 
 Held against ``repro.models.registry`` (``build_model``,
-``make_train_batch``) for the families the port builds: ``"dense"``.
-Tokens come from an explicit ``torch.Generator``; they are other numbers
-than the reference's ``jax.random.randint`` for the same seed, so tests
-carry batches across as numpy.
+``make_train_batch``, ``make_decode_inputs``) for the families the port
+builds: ``"dense"``, ``"moe"`` and ``"vlm"``. Tokens and image
+embeddings come from an explicit ``torch.Generator``; they are other
+numbers than the reference's ``jax.random`` draws for the same seed, so
+tests carry batches across as numpy.
 """
 from __future__ import annotations
 
@@ -17,16 +18,39 @@ from repro_torch.models.transformer import DecoderLM
 
 
 def build_model(cfg: ArchConfig) -> DecoderLM:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg)
-    raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
-                              "ported yet")
+    if cfg.family in ("ssm", "hybrid", "encdec"):
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is "
+                                  "not ported yet")
+    raise ValueError(f"unknown family {cfg.family}")
 
 
 def make_train_batch(cfg: ArchConfig, batch: int, seq: int,
                      generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """Random next-token batch on the generator's device: tokens
-    (batch, seq) int64 in [0, vocab), labels = tokens."""
+    (batch, seq) int64 in [0, vocab), labels = tokens; for the VLM
+    family also image_embeds (batch, num_image_tokens, d_model), bf16
+    normals times 0.02."""
+    dev = generator.device
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
-                           generator=generator, device=generator.device)
-    return {"tokens": tokens, "labels": tokens}
+                           generator=generator, device=dev)
+    out = {"tokens": tokens, "labels": tokens}
+    if cfg.family == "vlm":
+        out["image_embeds"] = torch.randn(
+            (batch, cfg.num_image_tokens, cfg.d_model), generator=generator,
+            device=dev).to(torch.bfloat16) * 0.02
+    return out
+
+
+def make_decode_inputs(model: DecoderLM, cfg: ArchConfig, batch: int,
+                       cache_len: int, generator: torch.Generator
+                       ) -> Dict[str, object]:
+    """One decode step's inputs at the cache's last position: token
+    (batch,), pos (batch,) = cache_len - 1, a zero cache."""
+    dev = generator.device
+    token = torch.randint(0, cfg.vocab_size, (batch,), generator=generator,
+                          device=dev)
+    pos = torch.full((batch,), cache_len - 1, dtype=torch.int64, device=dev)
+    return {"token": token, "pos": pos,
+            "cache": model.init_cache(batch, cache_len, dev)}

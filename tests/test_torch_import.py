@@ -100,3 +100,37 @@ def test_datacenter_launcher_defaults_to_cuda_and_runs_on_the_cpu_when_asked():
     assert len(steps) == 2
     assert "loss=" in steps[-1] and "clients_received=" in steps[-1]
     assert "2 layers, d_model 256, 1574144 parameters" in out.stdout
+
+
+_SERVE = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.argv = ["serve"] + sys.argv[1:]
+runpy.run_module("repro_torch.launch.serve", run_name="__main__")
+"""
+
+
+def _serve(*args):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return subprocess.run([sys.executable, "-c", _SERVE, "--smoke", *args],
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_serve_launcher_defaults_to_cuda_and_runs_on_the_cpu_when_asked():
+    """The serve launcher with jax and the reference blocked: its three
+    lines at the reference's defaults (batch 4, prompt 32, 16 tokens)."""
+    import torch
+    if not torch.cuda.is_available():
+        out = _serve()
+        assert out.returncode != 0
+        assert "no CUDA device" in out.stderr
+    out = _serve("--device", "cpu")
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("prefill 4x32: ")
+    assert lines[1].startswith("decoded 15 steps in ") and "tok/s" in lines[1]
+    assert lines[2].startswith("generated ids[0]: [")
+    assert len(lines[2].split(": [")[1].split(",")) == 16

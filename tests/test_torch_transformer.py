@@ -64,7 +64,8 @@ def results():
         rlog = ref_fwd(rp, rb)
         params = {k: v.to(tdt) for k, v in params_from_numpy(tree).items()}
         tg, tl = torch.func.grad_and_value(model.loss)(params, tb)
-        tlog = model.forward(params, tb)
+        tlog, taux = model.forward(params, tb)
+        assert float(taux) == 0.0             # the dense family's aux loss
         rg = params_from_numpy(jax.tree_util.tree_map(np.asarray, rg))
         out[name] = dict(
             ref_loss=float(rl), loss=float(tl),
@@ -144,11 +145,15 @@ def test_rope_tables_and_norm_match_reference():
 
 
 def test_long_sequences_and_other_families_raise():
+    """Above CHUNKED_ATTN_THRESHOLD tokens attention runs in query chunks
+    of gcd(sq, Q_CHUNK); a length whose chunks would be under 16 tokens
+    raises (the reference asserts). The families the port does not build
+    raise."""
     from repro_torch.models.layers import CHUNKED_ATTN_THRESHOLD, attend
     cfg = lm_arch()[1]
     q = torch.zeros(1, CHUNKED_ATTN_THRESHOLD + 1, 4, 8)
     k = torch.zeros(1, CHUNKED_ATTN_THRESHOLD + 1, 4, 8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="at least 16"):
         attend(cfg, q, k, k, causal=True)
     with pytest.raises(NotImplementedError):
-        build_model(get_arch("granite-8b").replace(family="moe"))
+        build_model(get_arch("granite-8b").replace(family="ssm"))

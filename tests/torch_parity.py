@@ -129,3 +129,84 @@ def as_jax(tree, dtype):
     """A numpy tree as jax arrays of ``dtype``."""
     import jax.numpy as jnp
     return jax.tree_util.tree_map(lambda x: jnp.asarray(x, dtype), tree)
+
+
+# --------------------------------------------------------------------------- #
+# Decoder LMs of every family, mixed-dtype trees and KV caches
+# --------------------------------------------------------------------------- #
+def arch_pair(name, **replace):
+    """``name`` at ``reduce_for_smoke`` widths on both sides (reference,
+    port), with the same ``ArchConfig.replace`` fields applied."""
+    from repro.configs import get_arch as ref_get_arch
+    from repro.configs import reduce_for_smoke as ref_reduce
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    return (ref_reduce(ref_get_arch(name)).replace(**replace),
+            reduce_for_smoke(get_arch(name)).replace(**replace))
+
+
+def decoder_weights(cfg, seed=0):
+    """Initial ``DecoderLM`` weights for the port's config ``cfg`` as the
+    reference's numpy tree (float32; the bf16 leaves' values exactly
+    bfloat16 values, the router's float32 draws)."""
+    from repro_torch.models import DecoderLM
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    return params_to_numpy(DecoderLM(cfg).init(gen))
+
+
+def as_jax_like(tree, specs, dtype):
+    """A numpy tree as jax arrays: leaves whose ``ParamSpec`` (from the
+    reference's ``param_specs()``) is float32 stay float32 (the MoE
+    router), the rest become ``dtype``."""
+    import jax.numpy as jnp
+    return jax.tree_util.tree_map(
+        lambda x, s: jnp.asarray(
+            x, jnp.float32 if s.dtype == jnp.float32 else dtype),
+        tree, specs, is_leaf=lambda x: hasattr(x, "axes"))
+
+
+def port_params_like(tree, model, dtype):
+    """The same numpy tree as the port's parameters: float32 where the
+    port's spec is float32, ``dtype`` elsewhere."""
+    from repro_torch.models import params_from_numpy
+    specs = model.param_specs()
+    return {k: v.to(torch.float32 if specs[k].dtype == torch.float32
+                    else dtype)
+            for k, v in params_from_numpy(tree).items()}
+
+
+def cache_to_numpy(cache):
+    """A KV cache dict (jax or torch; bf16) as float32 numpy arrays."""
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, torch.Tensor):
+            out[k] = v.detach().to(torch.float32).cpu().numpy()
+        else:
+            out[k] = np.asarray(v.astype(np.float32))
+    return out
+
+
+def cache_from_numpy(cache, side):
+    """Float32 numpy cache arrays (each exactly a bf16 value) as a bf16
+    cache on ``side`` ("jax" or "torch")."""
+    if side == "jax":
+        import jax.numpy as jnp
+        return {k: jnp.asarray(v, jnp.bfloat16) for k, v in cache.items()}
+    return {k: torch.from_numpy(np.array(v)).to(torch.bfloat16)
+            for k, v in cache.items()}
+
+
+def assert_cache_close(got, ref, where="", noise=1e-5, share=1e-3):
+    """Every element within one bf16 ulp plus ``noise`` times the largest
+    |ref| of ``ref``; at most ``share`` of them not equal."""
+    def ulp(x):
+        return np.exp2(np.floor(np.log2(np.maximum(np.abs(x), 1e-30))) - 7)
+
+    assert sorted(got) == sorted(ref), where
+    for k in ref:
+        g, r = got[k], ref[k]
+        assert g.shape == r.shape, (where, k)
+        tol = noise * np.max(np.abs(r))
+        assert np.all(np.abs(g - r) <= np.maximum(ulp(g), ulp(r)) + tol), \
+            (where, k, np.max(np.abs(g - r) - np.maximum(ulp(g), ulp(r))))
+        assert np.mean(g != r) <= share, (where, k, np.mean(g != r))
