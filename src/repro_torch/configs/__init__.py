@@ -2,11 +2,11 @@
 ResNet, and the architecture registry.
 
 ``ARCHS`` holds the reference's ten architectures, with granite-8b's
-sliding-window variant in ``VARIANTS``. The port builds the dense, MoE
-and VLM families (seven of them); the SSM, hybrid and encoder-decoder
-configs (rwkv6-7b, zamba2-2.7b, whisper-medium) are here as data, and
-``models.build_model`` raises for their families. ``get_arch``,
-``list_archs`` and ``reduce_for_smoke`` behave as the reference's.
+sliding-window variant in ``VARIANTS``; ``models.build_model`` builds
+every one of them (the dense, MoE and VLM families, the SSM rwkv6-7b,
+the hybrid zamba2-2.7b and the encoder-decoder whisper-medium).
+``get_arch``, ``list_archs`` and ``reduce_for_smoke`` behave as the
+reference's.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """rwkv6-7b (Finch) — attention-free RNN with data-dependent decay.
 
-Held against ``repro.configs.rwkv6_7b``. The port has the configuration
-only; its family is not ported yet.
+Held against ``repro.configs.rwkv6_7b``; ``models.rwkv6.RWKVLM`` builds
+it.
 
 Assigned spec: 32L, d_model=4096, attention-free, d_ff=14336, vocab=65536.
 Data-dependent decay per-channel per-step (arXiv:2404.05892).

@@ -1,7 +1,7 @@
 """whisper-medium — encoder-decoder audio backbone (conv frontend stubbed).
 
-Held against ``repro.configs.whisper_medium``. The port has the
-configuration only; its encoder-decoder family is not ported yet.
+Held against ``repro.configs.whisper_medium``; ``models.encdec.EncDecLM``
+builds it.
 
 Assigned spec: 24L (decoder; encoder matched at 24L), d_model=1024,
 16 heads (kv=16), d_ff=4096, vocab=51865.  [arXiv:2212.04356]

@@ -1,7 +1,7 @@
 """zamba2-2.7b — hybrid: Mamba2 backbone + shared attention block.
 
-Held against ``repro.configs.zamba2_2_7b``. The port has the configuration
-only; its family is not ported yet.
+Held against ``repro.configs.zamba2_2_7b``; ``models.hybrid.HybridLM``
+builds it.
 
 Assigned spec: 54L, d_model=2560, 32 heads (GQA kv=32), d_ff=10240,
 vocab=32000, ssm_state=64; Mamba2 layers with a single *shared*

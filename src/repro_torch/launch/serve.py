@@ -1,5 +1,6 @@
 """Serving launcher: batched prefill + decode for any architecture the
-port builds (the dense, MoE and VLM families).
+port builds (the dense, MoE, VLM, SSM, hybrid and encoder-decoder
+families).
 
 Held against ``repro.launch.serve``: the same arguments and defaults,
 plus ``--device`` (``cuda`` unless ``--device cpu``; raises when no card
@@ -9,7 +10,9 @@ callers that hold a model and parameters: prefill the prompt, splice its
 cache into a cache of prompt + gen positions (the reference's
 ``splice`` rule: only a cache whose sequence axis equals the prompt
 length is copied, so a VLM prompt cache, which also holds the image
-tokens, is not, and decode starts from a zero cache), then greedy or
+tokens, is not, and decode starts from a zero cache; a leaf of the
+decode cache's own shape, a recurrent state or a cross cache, replaces
+it), then greedy or
 sampled decode, one token a step. With ``--temperature > 0`` step i
 draws from a ``torch.Generator`` seeded ``100 + i`` (other draws than
 the reference's ``PRNGKey(100 + i)``; only greedy decoding is a parity
@@ -58,7 +61,8 @@ def _sync(device: torch.device) -> None:
 
 def generate(model, params: Tree, batch: Dict[str, torch.Tensor], gen: int,
              temperature: float = 0.0) -> Generation:
-    """Prefill ``batch`` (tokens (B, P), plus image_embeds for a VLM) and
+    """Prefill ``batch`` (tokens (B, P), plus image_embeds for a VLM or
+    frames for the encoder-decoder family) and
     decode ``gen - 1`` more tokens at positions P, P + 1, ..."""
     tokens = batch["tokens"]
     device = tokens.device

@@ -11,8 +11,9 @@ plus ``--device``). Two modes:
   pass more.
 * datacenter (the default): the LTFL step with block pruning
   (``prune_kind="block"``, ``--prune-block``), the quantizer and the
-  in-step packet drops (``--drop-prob``) for an architecture of
-  ``repro_torch.configs`` on one card. ``--smoke`` runs its
+  in-step packet drops (``--drop-prob``) for any architecture of
+  ``repro_torch.configs`` (every family; the encoder-decoder's frames
+  are split per client as the tokens are) on one card. ``--smoke`` runs its
   ``reduce_for_smoke`` variant. ``run_datacenter`` takes the
   ``ArchConfig`` itself, so a caller can cut depth and keep the widths.
 

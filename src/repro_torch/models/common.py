@@ -7,7 +7,10 @@ scale, dtype; bfloat16 unless a model asks for another), the
 inits, ``stack_specs``, ``param_count_tree``, ``rms_norm``,
 ``layer_norm``, ``apply_norm``, ``norm_specs``, ``activation``,
 ``rope_tables``, ``apply_rope``, ``apply_rope_at`` and
-``cross_entropy_loss``. The
+``cross_entropy_loss``; ``time_scan`` stands in for the reference's
+``lax.scan`` over time in the recurrent families, ``unstack`` walks
+stacked layers and ``store_layer`` writes one layer of a stacked cache.
+The
 reference's logical sharding axes and ``shard_hint`` are left out: the
 port runs on one card. Parameter trees are flat ``Dict[str, Tensor]``
 keyed by dotted paths in the reference's leaf order
@@ -101,6 +104,19 @@ def subtree(tree: Dict, prefix: str) -> Dict:
     return {k[n:]: v for k, v in tree.items() if k.startswith(prefix)}
 
 
+def prefixed(prefix: str, tree: Dict) -> Dict:
+    """The entries of ``tree`` with ``prefix`` put before each name."""
+    return {prefix + k: v for k, v in tree.items()}
+
+
+def unstack(tree: Dict, prefix: str, n: int):
+    """Per index i < n along the stacked leading axis of the entries under
+    ``prefix``: {name: leaf[i]} (views; the reference's scanned layers)."""
+    stacked = subtree(tree, prefix)
+    for i in range(n):
+        yield {k: v[i] for k, v in stacked.items()}
+
+
 # --------------------------------------------------------------------------- #
 # Common numerics
 # --------------------------------------------------------------------------- #
@@ -185,6 +201,48 @@ def apply_rope_at(x: torch.Tensor, pos: torch.Tensor, head_dim: int,
     ang = pos.to(torch.float32)[:, None] \
         * _rope_freqs(head_dim, theta, x.device)[None, :]     # (B, half)
     return apply_rope(x, torch.cos(ang), torch.sin(ang))
+
+
+def time_scan(step: Callable, carry, n: int):
+    """The reference's ``lax.scan`` over time as a Python loop:
+    ``step(carry, t) -> (carry, y_t)`` for t = 0 .. n - 1; returns
+    (carry, ys (n, *y_t.shape)). Without autograd (prefill and decode run
+    under ``torch.inference_mode()``) each y_t is written into one tensor
+    allocated at the first step; under autograd (training, the datacenter
+    step's ``grad`` and ``vmap``) the outputs are stacked at the end, the
+    form both take. Either way the values are the same."""
+    if torch.is_grad_enabled():
+        ys = []
+        for t in range(n):
+            carry, y = step(carry, t)
+            ys.append(y)
+        return carry, torch.stack(ys)
+    out = None
+    for t in range(n):
+        carry, y = step(carry, t)
+        if out is None:
+            out = y.new_empty((n,) + tuple(y.shape))
+        out[t] = y
+    return carry, out
+
+
+def store_layer(cache: Tree, key: str, index, value: torch.Tensor,
+                lead=None) -> None:
+    """``cache[key][index] = value`` for one layer (``index`` an int, or
+    (segment, layer)) of a stacked cache that a pass writes layer by
+    layer, every layer. A missing leaf is allocated as (*lead,
+    *value.shape) (``lead`` an int or a tuple: the stacked dims); a leaf
+    of another dtype than ``value`` is replaced by a new one of
+    ``value``'s dtype, as the reference's scan stacks its outputs in their
+    own dtype (a decode step reads the layers from the cache it was given,
+    so the old leaf is still read)."""
+    if key not in cache:
+        lead = (lead,) if isinstance(lead, int) else tuple(lead)
+        cache[key] = value.new_empty(lead + tuple(value.shape))
+    elif cache[key].dtype != value.dtype:
+        cache[key] = torch.empty(cache[key].shape, dtype=value.dtype,
+                                 device=cache[key].device)
+    cache[key][index] = value
 
 
 def cross_entropy_loss(logits: torch.Tensor,

@@ -20,12 +20,16 @@ query-chunked path: chunks of ``gcd(sq, Q_CHUNK)`` queries, each against
 every key, in a Python loop (the reference's ``lax.map``) writing into
 one output, so no (sq, skv) score matrix exists at once.
 
+``attention_train`` is self- or cross-attention (``kv_x``: the keys
+and values come from another sequence, the encoder's output), causal or
+not, with or without rope, as the reference's. The learned position
+table ``pos`` (``max(encoder_seq, 4096)`` rows) is part of the
+embeddings when ``cfg.pos_emb == "learned"`` (the encoder-decoder
+family).
+
 ``attention_decode`` writes the new token's k/v into the cache it is
 given, in place, and returns that same cache (the reference returns an
 updated copy); with a sliding window the cache is a ring buffer.
-
-Not ported yet: cross-attention (the encoder-decoder family's) and
-learned position embeddings.
 """
 from __future__ import annotations
 
@@ -59,6 +63,10 @@ def embedding_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
                           scale=0.02)}
     if not cfg.tie_embeddings:
         s["head"] = ParamSpec((cfg.d_model, cfg.vocab_size), "normal")
+    if cfg.pos_emb == "learned":
+        # sized generously; decode indexes by absolute position
+        s["pos"] = ParamSpec((max(cfg.encoder_seq, 4096), cfg.d_model),
+                             "embed", scale=0.02)
     return s
 
 
@@ -90,16 +98,17 @@ def attention_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     return s
 
 
-def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor):
-    B, S = x.shape[0], x.shape[1]
+def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
+                 kv_x: torch.Tensor):
+    B, S, Skv = x.shape[0], x.shape[1], kv_x.shape[1]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = kv_x @ p["wk"]
+    v = kv_x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, h, hd), k.reshape(B, S, kv, hd),
-            v.reshape(B, S, kv, hd))
+    return (q.reshape(B, S, h, hd), k.reshape(B, Skv, kv, hd),
+            v.reshape(B, Skv, kv, hd))
 
 
 def _attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -170,16 +179,22 @@ def attend(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
     return out.reshape(B, sq, H, v.shape[-1])
 
 
-def attention_train(cfg: ArchConfig, p: Tree, x: torch.Tensor
-                    ) -> torch.Tensor:
-    """Causal full-sequence self-attention for training and prefill."""
-    q, k, v = _project_qkv(cfg, p, x)
-    if cfg.pos_emb == "rope":
-        cos, sin = rope_tables(x.shape[1], cfg.head_dim, cfg.rope_theta,
-                               device=x.device)
+def attention_train(cfg: ArchConfig, p: Tree, x: torch.Tensor, *,
+                    causal: bool = True,
+                    kv_x: Optional[torch.Tensor] = None,
+                    rope: bool = True,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Full-sequence attention for training and prefill: self-attention,
+    or cross-attention to ``kv_x`` (B, Skv, D)."""
+    q, k, v = _project_qkv(cfg, p, x, x if kv_x is None else kv_x)
+    if rope and cfg.pos_emb == "rope":
+        cos, sin = rope_tables(q.shape[1], cfg.head_dim, cfg.rope_theta,
+                               offset=q_offset, device=x.device)
         q = apply_rope(q, cos, sin)
+        cos, sin = rope_tables(k.shape[1], cfg.head_dim, cfg.rope_theta,
+                               device=x.device)
         k = apply_rope(k, cos, sin)
-    out = attend(cfg, q, k, v, causal=True)
+    out = attend(cfg, q, k, v, causal=causal, q_offset=q_offset)
     out = out.reshape(x.shape[0], x.shape[1], cfg.n_heads * cfg.head_dim)
     return out @ p["wo"]
 
@@ -187,7 +202,7 @@ def attention_train(cfg: ArchConfig, p: Tree, x: torch.Tensor
 def attention_prefill_kv(cfg: ArchConfig, p: Tree, x: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The roped (k, v) pair for cache construction during prefill."""
-    _, k, v = _project_qkv(cfg, p, x)
+    _, k, v = _project_qkv(cfg, p, x, x)
     if cfg.pos_emb == "rope":
         cos, sin = rope_tables(k.shape[1], cfg.head_dim, cfg.rope_theta,
                                device=x.device)

@@ -22,7 +22,6 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import ParamSpec, activation, subtree
@@ -55,6 +54,14 @@ def moe_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
         s.update({f"shared.{k}": v
                   for k, v in mlp_specs(cfg, d_ff=shared_f).items()})
     return s
+
+
+def one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``F.one_hot(idx, n).to(dtype)`` as a comparison with an ``arange``:
+    the same values, and no check of the index values, which
+    ``torch.func.vmap`` refuses (the datacenter step maps the loss over
+    clients)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
 def _capacity(group_size: int, top_k: int, num_experts: int,
@@ -103,14 +110,14 @@ def _dispatch_masks(top_w: torch.Tensor, top_i: torch.Tensor, E: int,
     fill = torch.zeros(G, E, dtype=torch.int64, device=top_i.device)
     for k in range(K):
         sel = top_i[:, :, k]                                   # (G, Sg)
-        onehot_e = F.one_hot(sel, E)                           # (G, Sg, E)
+        onehot_e = one_hot(sel, E, torch.int64)                # (G, Sg, E)
         # position of this token within its expert's buffer
         prior = torch.cumsum(onehot_e, dim=1) - onehot_e       # tokens before
         pos = (prior * onehot_e).sum(-1) + torch.gather(fill, 1, sel)
         keep = (pos < C).to(torch.float32)
         # past capacity: the one-hot row is zeroed by ``keep`` (the
         # reference's one_hot of an out-of-range index is all zeros)
-        onehot_c = F.one_hot(pos.clamp(max=C - 1), C).to(torch.float32)
+        onehot_c = one_hot(pos.clamp(max=C - 1), C, torch.float32)
         mask_ec = (onehot_e.to(torch.float32) * keep[..., None])[..., None] \
             * onehot_c[:, :, None, :]                          # (G, Sg, E, C)
         dispatch = dispatch + mask_ec.to(dtype)
@@ -138,7 +145,7 @@ def moe_apply(cfg: ArchConfig, p: Tree, x: torch.Tensor
 
     # ---- load-balance auxiliary loss (switch-style) ---------------------- #
     me = probs.mean(dim=(0, 1))                                # (E,)
-    ce = F.one_hot(top_i, E).to(torch.float32).sum(2).mean(dim=(0, 1)) / K
+    ce = one_hot(top_i, E, torch.float32).sum(2).mean(dim=(0, 1)) / K
     aux = E * torch.sum(me * ce) * mo.aux_loss_coef
 
     dispatch, combine = _dispatch_masks(top_w, top_i, E, C, x.dtype)
@@ -171,7 +178,7 @@ def moe_apply_token(cfg: ArchConfig, p: Tree, x: torch.Tensor
         cw = torch.zeros(x.shape[0], mo.num_experts, dtype=x.dtype,
                          device=x.device)
         for k in range(K):
-            cw = cw + F.one_hot(top_i[:, k], mo.num_experts).to(x.dtype) \
+            cw = cw + one_hot(top_i[:, k], mo.num_experts, x.dtype) \
                 * top_w[:, k][:, None]
         y_e = _experts(cfg, p, "bd,edf->ebf", x, "ebf,efd->ebd")  # (E,B,D)
         y = torch.einsum("ebd,be->bd", y_e, cw)

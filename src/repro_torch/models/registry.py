@@ -1,9 +1,12 @@
 """Model factory and batch constructors.
 
 Held against ``repro.models.registry`` (``build_model``,
-``make_train_batch``, ``make_decode_inputs``) for the families the port
-builds: ``"dense"``, ``"moe"`` and ``"vlm"``. Tokens and image
-embeddings come from an explicit ``torch.Generator``; they are other
+``make_train_batch``, ``make_decode_inputs``) for every family of the
+configuration registry: ``"dense"``, ``"moe"`` and ``"vlm"`` build
+``DecoderLM``; ``"ssm"`` builds ``RWKVLM`` for a config named ``rwkv*``
+and raises for any other, as the reference does; ``"hybrid"`` builds
+``HybridLM`` and ``"encdec"`` ``EncDecLM``. Tokens, image embeddings and
+audio frames come from an explicit ``torch.Generator``; they are other
 numbers than the reference's ``jax.random`` draws for the same seed, so
 tests carry batches across as numpy.
 """
@@ -14,15 +17,23 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.hybrid import HybridLM
+from repro_torch.models.rwkv6 import RWKVLM
 from repro_torch.models.transformer import DecoderLM
 
 
-def build_model(cfg: ArchConfig) -> DecoderLM:
+def build_model(cfg: ArchConfig):
     if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg)
-    if cfg.family in ("ssm", "hybrid", "encdec"):
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is "
-                                  "not ported yet")
+    if cfg.family == "ssm":
+        if cfg.name.startswith("rwkv"):
+            return RWKVLM(cfg)
+        raise NotImplementedError(f"ssm arch {cfg.name}")
+    if cfg.family == "hybrid":
+        return HybridLM(cfg)
+    if cfg.family == "encdec":
+        return EncDecLM(cfg)
     raise ValueError(f"unknown family {cfg.family}")
 
 
@@ -30,8 +41,9 @@ def make_train_batch(cfg: ArchConfig, batch: int, seq: int,
                      generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """Random next-token batch on the generator's device: tokens
     (batch, seq) int64 in [0, vocab), labels = tokens; for the VLM
-    family also image_embeds (batch, num_image_tokens, d_model), bf16
-    normals times 0.02."""
+    family also image_embeds (batch, num_image_tokens, d_model), for the
+    encoder-decoder family frames (batch, encoder_seq, d_model), each
+    bf16 normals times 0.02."""
     dev = generator.device
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
                            generator=generator, device=dev)
@@ -40,10 +52,14 @@ def make_train_batch(cfg: ArchConfig, batch: int, seq: int,
         out["image_embeds"] = torch.randn(
             (batch, cfg.num_image_tokens, cfg.d_model), generator=generator,
             device=dev).to(torch.bfloat16) * 0.02
+    if cfg.family == "encdec":
+        out["frames"] = torch.randn(
+            (batch, cfg.encoder_seq, cfg.d_model), generator=generator,
+            device=dev).to(torch.bfloat16) * 0.02
     return out
 
 
-def make_decode_inputs(model: DecoderLM, cfg: ArchConfig, batch: int,
+def make_decode_inputs(model, cfg: ArchConfig, batch: int,
                        cache_len: int, generator: torch.Generator
                        ) -> Dict[str, object]:
     """One decode step's inputs at the cache's last position: token

@@ -39,8 +39,10 @@ from repro_torch.models.common import (
     cross_entropy_loss,
     init_params,
     norm_specs,
+    prefixed,
     stack_specs,
     subtree,
+    unstack,
 )
 from repro_torch.models.convert import in_leaf_order
 from repro_torch.models.layers import (
@@ -58,10 +60,6 @@ from repro_torch.models.layers import (
 Tree = Dict[str, torch.Tensor]
 CACHE_DTYPE = torch.bfloat16
 
-
-def _prefixed(prefix: str, specs: Dict[str, ParamSpec]
-              ) -> Dict[str, ParamSpec]:
-    return {prefix + k: v for k, v in specs.items()}
 
 
 class DecoderLM:
@@ -87,22 +85,22 @@ class DecoderLM:
         ffn = (moe_mod.moe_specs(cfg) if moe_layer
                else mlp_specs(cfg, d_ff=dense_ff))
         return {
-            **_prefixed("ln1.", norm_specs(cfg, cfg.d_model)),
-            **_prefixed("attn.", attn),
-            **_prefixed("ln2.", norm_specs(cfg, cfg.d_model)),
-            **_prefixed("ffn.", ffn),
+            **prefixed("ln1.", norm_specs(cfg, cfg.d_model)),
+            **prefixed("attn.", attn),
+            **prefixed("ln2.", norm_specs(cfg, cfg.d_model)),
+            **prefixed("ffn.", ffn),
         }
 
     def param_specs(self) -> Dict[str, ParamSpec]:
         cfg = self.cfg
         specs = {
-            **_prefixed("embed.", embedding_specs(cfg)),
-            **_prefixed("final_norm.", norm_specs(cfg, cfg.d_model)),
-            **_prefixed("layers.", stack_specs(
+            **prefixed("embed.", embedding_specs(cfg)),
+            **prefixed("final_norm.", norm_specs(cfg, cfg.d_model)),
+            **prefixed("layers.", stack_specs(
                 self.n_scanned, self._layer_specs(cfg.moe is not None))),
         }
         for i in range(self.n_prefix):
-            specs.update(_prefixed(f"prefix_layers.{i}.", self._layer_specs(
+            specs.update(prefixed(f"prefix_layers.{i}.", self._layer_specs(
                 False, dense_ff=cfg.moe.dense_d_ff)))
         return in_leaf_order(specs)
 
@@ -116,9 +114,7 @@ class DecoderLM:
         views of the stacked ones."""
         for i in range(self.n_prefix):
             yield subtree(params, f"prefix_layers.{i}.")
-        stacked = subtree(params, "layers.")
-        for i in range(self.n_scanned):
-            yield {k: v[i] for k, v in stacked.items()}
+        yield from unstack(params, "layers.", self.n_scanned)
 
     # ------------------------------------------------------------------ #
     # forward (train / prefill)

@@ -151,12 +151,30 @@ def test_param_counts_of_all_ten_configs_match_reference():
         configs.get_arch("granite-8b")).param_specs()) == 8_254_689_280
 
 
-@pytest.mark.parametrize("name", ["rwkv6-7b", "zamba2-2.7b",
-                                  "whisper-medium"])
-def test_unported_families_raise_naming_the_family(name):
-    cfg = configs.get_arch(name)
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        build_model(cfg)
+@pytest.mark.parametrize("name,count,tree_count", [
+    ("rwkv6-7b", 7_516_454_912, 7_534_415_872),
+    ("zamba2-2.7b", 2_420_817_920, 2_422_670_240),
+    ("whisper-medium", 810_862_592, 815_306_752)])
+def test_new_families_build_at_full_width_as_the_reference(name, count,
+                                                           tree_count):
+    """The SSM, hybrid and encoder-decoder families build at their full
+    published widths with the reference's parameter counts: the
+    config's ``param_count()`` and the tree's ``param_count_tree`` (from
+    the specs, no weights made; the tree also holds the norms, rwkv6's
+    mixing ratios and decay LoRA, Mamba2's convolution and the learned
+    positions, which ``param_count()`` leaves out); an ssm config not
+    named rwkv* raises, as the reference's ``build_model`` does."""
+    cfg, ref_cfg = configs.get_arch(name), ref_configs.get_arch(name)
+    assert cfg.param_count() == ref_cfg.param_count() == count
+    specs = build_model(cfg).param_specs()
+    ref_specs = ref_build_model(ref_cfg).param_specs()
+    assert param_count_tree(specs) == ref_param_count(ref_specs) \
+        == tree_count
+    other = cfg.replace(family="ssm", name="mamba-" + name)
+    with pytest.raises(NotImplementedError, match="ssm arch"):
+        build_model(other)
+    with pytest.raises(NotImplementedError, match="ssm arch"):
+        ref_build_model(ref_cfg.replace(family="ssm", name="mamba-" + name))
 
 
 def test_mixed_dtype_trees_round_trip():

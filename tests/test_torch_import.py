@@ -134,3 +134,4 @@ def test_serve_launcher_defaults_to_cuda_and_runs_on_the_cpu_when_asked():
     assert lines[1].startswith("decoded 15 steps in ") and "tok/s" in lines[1]
     assert lines[2].startswith("generated ids[0]: [")
     assert len(lines[2].split(": [")[1].split(",")) == 16
+
