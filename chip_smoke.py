@@ -144,20 +144,71 @@ Phases; any failure exits non-zero before the result lines:
    fixed 1e-2: 1.19e-2). Phases 19-20 must leave every
    ``LAUNCHES`` count as it was.
 
+21. the scanned engine at small size: ``control="device"`` and
+   ``population_sharding`` raise ValueErrors naming ROADMAP A5 and A7;
+   ``ScanRunner(rng="host")`` with the MLP (hidden 16) and U = 4, LTFL,
+   6 rounds in segments of 3, on the card against the CPU with the same
+   injected uniforms (cohorts,
+   received counts and control means equal; losses within phase 4's rel
+   1e-4); on the card ``ScanRunner`` against ``FedRunner`` for LTFL and
+   FedSGD, 6 rounds: losses and weights bitwise equal;
+   ``make_scanned_step`` over granite-8b's datacenter step at
+   ``reduce_for_smoke`` widths, 3 rounds, against a loop of the same
+   step: losses and weights bitwise equal;
+22. the scanned engine's main path at the paper's width (phase 5's
+   model, U = 30, batch 50, 20,000 images), ``LTFLScheme(
+   recontrol_every=10)``, ``eval_every=0``: 20 rounds (two segments)
+   with ``rng="host"``, then 20 with ``rng="device"``, every segment's
+   loop under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
+   inside a segment fails the phase; the check is first shown to catch a
+   device-to-host read); every loss finite and, counted
+   from 0 just before each run, 32 quantizer launches a round. Then the
+   steady time a round of ``FedRunner`` and of ``ScanRunner`` (both rng
+   modes) at this width, and in the MLP regime of
+   benchmarks/scan_engine.py (MLP, U = 16, batch 4, FedSGD, 64 rounds),
+   and the peak memory;
+23. ``run_sweep`` of ``SweepSpec.grid`` with LTFL over 2 channel regimes
+   (Table 2; a 5 MHz band and a 0.05 W power cap) x 2 seeds at phase
+   22's width, 10 rounds, under deterministic cuDNN: exactly one bucket
+   of 4 lanes and, counted from 0, 32 quantizer launches a round for the
+   whole bucket (its loop under the same sync check); the quantizer's
+   inputs and outputs of the bucket's first round (120 rows a leaf, each
+   with its own [lo, hi, levels]) against the plain version by phase 3's
+   rules, float32 as the path got them and cast to bfloat16; each lane
+   against its solo ``ScanRunner`` on the card: numpy-side fields equal,
+   losses and final weights bitwise equal, each round's delay and
+   energy within rel 1e-6 (``SWEEP_ACCOUNTING_REL``: the same float32
+   accounting over a (4, 30) view instead of (1, 30)); then two planted
+   faults (lanes 0 and 1 swap their quantized gradients; or only the two
+   rows at the lanes' seam) must move lane 0's weights. With cuDNN as it
+   was (nondeterministic algorithms allowed, as users run): the bucket's
+   steady time a round with its lanes built beforehand against the 4
+   lanes run one after another alone, the peak memory, and how far each
+   lane's weights and losses then lie from its solo run's (what the
+   bitwise check would face without deterministic cuDNN); the bucket
+   against its lanes alone in the MLP regime too (U = 16, batch 4, 64
+   rounds, 4 seed lanes, FedSGD and LTFL).
+
 ``--profile DIR`` also writes torch.profiler tables of one edge round
 (``DIR/profile_round.txt``), one datacenter step
-(``DIR/profile_step.txt``; phase 18's ``profile_step_<arch>.txt``) and
-one decode step of each serving run
-(``DIR/profile_decode_<arch>_<B>x<P>.txt``), with their idle shares.
+(``DIR/profile_step.txt``; phase 18's ``profile_step_<arch>.txt``), one
+decode step of each serving run
+(``DIR/profile_decode_<arch>_<B>x<P>.txt``) and one scanned segment of
+phase 22 (``DIR/profile_segment.txt``), with their idle shares.
 
 The last three lines are the ``kernels`` JSON, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``. The ``block_sparse_matmul``
-row also carries its main-path launches by path (``path``), the paths of
-phase 11's products (``check_paths``), its rate on live work
-(``kernel_tflops``) and the rho sweep.
+limit, and ``{"ok": true, "device": {...}}``. The ``stochastic_quant``
+row also carries the scanned engine's launches a round by rng mode, the
+sweep bucket's launches a round for its lanes and its check against the
+plain version at the bucket's rows (``max_abs_err`` is the larger of
+phase 3's and that check's float32 error). The
+``block_sparse_matmul`` row also carries its main-path launches by path
+(``path``), the paths of phase 11's products (``check_paths``), its rate
+on live work (``kernel_tflops``) and the rho sweep.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -323,35 +374,48 @@ def phase_build() -> None:
     log(f"[build] {len(KERNELS)} kernel(s) in {time.time() - t0:.1f} s")
 
 
-def phase_kernel_vs_plain(shapes) -> float:
+def quant_vs_plain(batch, where: str, outs=None):
+    """The quantizer against ``stochastic_quant_ref`` on (g, rand, rng)
+    triples, by phase 3's rules: float32 exactly, bfloat16 within one
+    quantization step on < 1e-3 of the elements. ``outs``, when given,
+    are the kernel's outputs already made on these inputs (else the
+    wrapper launches here). Returns the max abs error, the mismatch
+    fraction and the number of elements."""
     import torch
     from repro_torch.kernels.ref import stochastic_quant_ref
     from repro_torch.kernels.stochastic_quant import stochastic_quant
+    worst, mism, total = 0.0, 0, 0
+    for i, (g, rand, rng) in enumerate(batch):
+        out = stochastic_quant(g, rand, rng) if outs is None else outs[i]
+        ref = stochastic_quant_ref(g, rand, rng)
+        torch.cuda.synchronize()
+        diff = (out.to(torch.float32) - ref.to(torch.float32)).abs()
+        step = ((rng[:, 1] - rng[:, 0]) / rng[:, 2])[:, None]
+        worst = max(worst, float(diff.max()))
+        mism += int((diff > 0).sum())
+        total += diff.numel()
+        if g.dtype == torch.float32 and float(diff.max()) != 0.0:
+            fail(f"{where}: f32 kernel != plain at leaf {i}: max "
+                 f"{float(diff.max())}")
+        if g.dtype == torch.bfloat16 and bool(
+                (diff > step * 1.01 + 1e-30).any()):
+            fail(f"{where}: bf16 kernel off by more than one step at leaf "
+                 f"{i}")
+    frac = mism / total
+    if frac >= 1e-3:
+        fail(f"{where}: mismatch fraction {frac} >= 1e-3")
+    return worst, frac, total
+
+
+def phase_kernel_vs_plain(shapes) -> float:
+    import torch
     max_err_f32 = None
     for dtype in (torch.float32, torch.bfloat16):
-        worst, mism, total = 0.0, 0, 0
-        for (g, rand, rng), name in zip(make_batch(shapes, dtype, seed=1),
-                                        shapes):
-            out = stochastic_quant(g, rand, rng)
-            ref = stochastic_quant_ref(g, rand, rng)
-            torch.cuda.synchronize()
-            diff = (out.to(torch.float32) - ref.to(torch.float32)).abs()
-            step = ((rng[:, 1] - rng[:, 0]) / rng[:, 2])[:, None]
-            worst = max(worst, float(diff.max()))
-            mism += int((diff > 0).sum())
-            total += diff.numel()
-            if dtype == torch.float32 and float(diff.max()) != 0.0:
-                fail(f"f32 kernel != plain at {name}: max "
-                     f"{float(diff.max())}")
-            if dtype == torch.bfloat16 and bool(
-                    (diff > step * 1.01 + 1e-30).any()):
-                fail(f"bf16 kernel off by more than one step at {name}")
-        frac = mism / total
+        worst, frac, total = quant_vs_plain(
+            make_batch(shapes, dtype, seed=1), f"{str(dtype)[6:]}")
         log(f"[check] {str(dtype)[6:]}: 32 leaves x {C} clients, "
             f"{total} elements: max_abs_err={worst!r} "
             f"mismatch_fraction={frac!r}")
-        if frac >= 1e-3:
-            fail(f"{dtype}: mismatch fraction {frac} >= 1e-3")
         if dtype == torch.float32:
             max_err_f32 = worst
     return max_err_f32
@@ -1746,6 +1810,594 @@ def phase_serve_full(name: str, runs, check_p, profile_dir,
     return rows
 
 
+# --------------------------------------------------------------------------- #
+# The scanned engine and sweep lanes (phases 21-23)
+# --------------------------------------------------------------------------- #
+SCAN_ROUNDS = 10                        # LTFLScheme(recontrol_every=10)
+SWEEP_SEEDS = (0, 1)
+# phase 23's tolerance for a lane's per-round delay and energy against
+# its solo run's (see the module docstring); losses and weights: bitwise
+SWEEP_ACCOUNTING_REL = 1e-6
+
+
+def edge_world(n_train: int, n_test: int, seed: int = 0):
+    from repro_torch.data import ArrayDataset, synthetic_cifar
+    imgs, labels = synthetic_cifar(n_train, seed=seed)
+    timgs, tlabels = synthetic_cifar(n_test, seed=seed + 1)
+    return (ArrayDataset({"images": imgs, "labels": labels}),
+            ArrayDataset({"images": timgs, "labels": tlabels}))
+
+
+def same_host_fields(a, b, where: str) -> None:
+    """The numpy-side fields of two histories: bitwise."""
+    if len(a) != len(b):
+        fail(f"{where}: {len(a)} rounds against {len(b)}")
+    for x, y in zip(a, b):
+        for f in ("round", "cohort", "received", "rho_mean", "delta_mean",
+                  "power_mean"):
+            if getattr(x, f) != getattr(y, f):
+                fail(f"{where}: round {x.round} {f} {getattr(x, f)!r} vs "
+                     f"{getattr(y, f)!r}")
+
+
+def max_loss_rel(a, b) -> float:
+    return max(abs(x.train_loss - y.train_loss) / abs(y.train_loss)
+               for x, y in zip(a, b))
+
+
+def phase_scan_small() -> None:
+    """Phase 21: the scanned engine at small size, card against CPU and
+    against the per-round loop, and make_scanned_step against a loop."""
+    import torch
+    from repro_torch.configs import LTFLConfig, get_arch, reduce_for_smoke
+    from repro_torch.core.ltfl_step import make_fl_train_step
+    from repro_torch.fed import ALL_SCHEMES, FedRunner, ScanRunner, \
+        make_scanned_step
+    from repro_torch.models import MLP, MLPConfig, build_model, \
+        make_train_batch
+    from repro_torch.optim import sgd
+
+    train, test = edge_world(600, 128)
+    model = MLP(MLPConfig(hidden=(16,), downsample=4))
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = model.init(gen)
+    ltfl = LTFLConfig(num_devices=4, samples_min=40, samples_max=60,
+                      bo_iters=3, alt_max_iters=2)
+
+    def cpu_uniforms(seed, nc, shapes):
+        g = torch.Generator()
+        g.manual_seed(seed)
+        return [torch.rand((nc,) + tuple(s), generator=g) for s in shapes]
+
+    kw = dict(batch_size=8, seed=0, eval_every=0)
+    # the slices not ported yet refuse on the card too, naming their
+    # ROADMAP items
+    for bad, item in ((dict(control="device", rng="device"), "A5"),
+                      (dict(population_sharding=2, rng="device"), "A7")):
+        try:
+            ScanRunner(model, params, ltfl, train, test,
+                       ALL_SCHEMES["ltfl"](), device="cuda", **bad, **kw)
+        except ValueError as err:
+            if item not in str(err):
+                fail(f"ScanRunner({bad}) raised without naming {item}: "
+                     f"{err}")
+        else:
+            fail(f"ScanRunner({bad}) did not raise")
+    log("[scan] control='device' and population_sharding raise "
+        "ValueErrors naming A5 and A7 on the card")
+    hists = {}
+    for dev in ("cpu", "cuda"):
+        runner = ScanRunner(model, params, ltfl, train, test,
+                            ALL_SCHEMES["ltfl"](), device=dev,
+                            uniforms=cpu_uniforms, max_segment=3, **kw)
+        hists[dev] = runner.run(6)
+    same_host_fields(hists["cuda"], hists["cpu"], "scan card vs cpu")
+    rel = max_loss_rel(hists["cuda"], hists["cpu"])
+    if rel > 1e-4:                           # phase 4's tolerance
+        fail(f"scan card vs cpu: loss rel {rel}")
+    log(f"[scan] MLP U=4, 6 rounds in segments of 3, card vs cpu: host "
+        f"fields equal, loss max rel {rel!r}")
+    for name in ("ltfl", "fedsgd"):
+        loop = FedRunner(model, params, ltfl, train, test,
+                         ALL_SCHEMES[name](), device="cuda", **kw)
+        scan = ScanRunner(model, params, ltfl, train, test,
+                          ALL_SCHEMES[name](), device="cuda", **kw)
+        h_loop, h_scan = loop.run(6), scan.run(6)
+        same_host_fields(h_scan, h_loop, f"scan vs FedRunner {name}")
+        if [r.train_loss for r in h_scan] != [r.train_loss for r in h_loop]:
+            fail(f"scan vs FedRunner {name}: losses "
+                 f"{[r.train_loss for r in h_scan]} vs "
+                 f"{[r.train_loss for r in h_loop]}")
+        if not all(torch.equal(v, scan.params[k])
+                   for k, v in loop.params.items()):
+            fail(f"scan vs FedRunner {name}: weights differ")
+        log(f"[scan] MLP U=4 {name}, 6 rounds on the card: ScanRunner "
+            f"equals FedRunner bitwise (losses, weights)")
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    arch = reduce_for_smoke(get_arch("granite-8b"))
+    model = build_model(arch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen)
+    clients, per_client, seq, rounds = DC_CLIENTS, 2, 128, 3
+    opt = sgd(0.05)
+    step = make_fl_train_step(model, opt, clients, prune_block=32,
+                              prune_kind="block")
+    batch = make_train_batch(arch, rounds * clients * per_client, seq,
+                             generator=gen)
+    batches = {k: v.reshape(rounds, clients, per_client, *v.shape[1:])
+               for k, v in batch.items()}
+    full = lambda v: torch.full((clients,), v, device="cuda")  # noqa: E731
+    controls = {"rho": full(0.25), "delta": full(8.0),
+                "drop_prob": full(0.05), "weights": full(500.0)}
+    p, o, c = params, opt.init(params), step.init_comp_state(params)
+    losses = []
+    for r in range(rounds):
+        p, o, c, m = step(p, o, c, {k: v[r] for k, v in batches.items()},
+                          controls, r)
+        losses.append(m["loss"])
+    ps, _, _, ms = make_scanned_step(step)(
+        params, opt.init(params), step.init_comp_state(params), batches,
+        controls, list(range(rounds)))
+    if not torch.equal(ms["loss"], torch.stack(losses)) or not all(
+            torch.equal(v, ps[k]) for k, v in p.items()):
+        fail(f"make_scanned_step vs loop: losses {ms['loss'].tolist()} vs "
+             f"{torch.stack(losses).tolist()}")
+    log(f"[scan] make_scanned_step over granite-8b's datacenter step at "
+        f"smoke widths, {rounds} rounds: equals the loop bitwise (losses "
+        f"{ms['loss'].tolist()}, weights)")
+
+
+def _sync_free_run(runner, rounds: int, where: str):
+    """``runner.run(rounds)`` with every segment's loop under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync inside a
+    segment raises, and fails the phase."""
+    runner.segment_sync_debug = "error"
+    try:
+        return runner.run(rounds)
+    except RuntimeError as err:
+        fail(f"{where}: a host sync inside a segment: {err}")
+    finally:
+        runner.segment_sync_debug = None
+
+
+def _timed(fn) -> float:
+    import torch
+    torch.cuda.synchronize()
+    t = time.time()
+    fn()
+    torch.cuda.synchronize()
+    return time.time() - t
+
+
+def phase_scan_main(profile_dir):
+    """Phase 22: ScanRunner at the paper's width, both rng modes, then
+    FedRunner against ScanRunner per round at paper width and in the
+    MLP regime of benchmarks/scan_engine.py."""
+    import torch
+    from repro_torch.configs import LTFLConfig, ResNetConfig
+    from repro_torch.fed import FedRunner, FedSGDScheme, LTFLScheme, \
+        ScanRunner
+    from repro_torch.kernels.stochastic_quant import LAUNCHES
+    from repro_torch.models import MLP, MLPConfig, ResNet
+
+    # the sync check's positive control: it must catch a device-to-host
+    # read (PyTorch calls the mode a prototype that does not see every
+    # sync); whether it sees a pageable host-to-device copy is logged
+    probe = torch.ones(1, device="cuda")
+    caught = {}
+    for name, fn in (("item", lambda: float(probe)),
+                     ("upload", lambda: torch.tensor([1.0], device="cuda"))):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            caught[name] = False
+        except RuntimeError:
+            caught[name] = True
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    if not caught["item"]:
+        fail("set_sync_debug_mode('error') let a device-to-host read pass")
+    log(f"[scan] sync check catches: {caught}")
+
+    train, test = edge_world(20000, 2000)
+    model = ResNet(ResNetConfig())
+    n_leaves = len(model.param_specs())
+    out = {"launches_per_round": {}, "round_s": {}, "sync_check": caught}
+
+    def runner(cls, **kw):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        return cls(model, model.init(gen), LTFLConfig(), train, test,
+                   LTFLScheme(recontrol_every=SCAN_ROUNDS), batch_size=50,
+                   seed=0, eval_every=0, device="cuda", **kw)
+
+    for mode in ("host", "device"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        scan = runner(ScanRunner, rng=mode)
+        LAUNCHES["stochastic_quant"] = 0
+        first = _timed(lambda: _sync_free_run(
+            scan, SCAN_ROUNDS, f"scan rng={mode}"))
+        steady = _timed(lambda: _sync_free_run(
+            scan, SCAN_ROUNDS, f"scan rng={mode}"))
+        launched = LAUNCHES["stochastic_quant"]
+        peak = torch.cuda.max_memory_allocated()
+        hist = scan.history
+        if len(hist) != 2 * SCAN_ROUNDS or not all(
+                math.isfinite(r.train_loss) for r in hist):
+            fail(f"scan rng={mode}: losses {[r.train_loss for r in hist]}")
+        if launched != 2 * SCAN_ROUNDS * n_leaves:
+            fail(f"scan rng={mode}: {launched} quantizer launches in "
+                 f"{2 * SCAN_ROUNDS} rounds, want {n_leaves} a round")
+        out["launches_per_round"][mode] = launched // (2 * SCAN_ROUNDS)
+        out["round_s"][f"scan_{mode}"] = steady / SCAN_ROUNDS
+        log(f"[scan] paper width rng={mode}: 2 segments of {SCAN_ROUNDS} "
+            f"rounds, no host sync inside a segment, quantizer launches "
+            f"{launched} ({launched // (2 * SCAN_ROUNDS)} a round), losses "
+            f"{[r.train_loss for r in hist]}, received "
+            f"{[r.received for r in hist]}, segment_s first {first!r} "
+            f"steady {steady!r}, max_memory_allocated={peak} bytes")
+        if profile_dir is not None and mode == "host":
+            profile_call(lambda: scan.run(SCAN_ROUNDS),
+                         profile_dir / "profile_segment.txt",
+                         f"scanned segment ({SCAN_ROUNDS} rounds)")
+        del scan
+    loop = runner(FedRunner)
+    loop.run(SCAN_ROUNDS)
+    out["round_s"]["fedrunner"] = _timed(
+        lambda: loop.run(SCAN_ROUNDS)) / SCAN_ROUNDS
+    del loop
+    torch.cuda.empty_cache()
+    log(f"[scan] paper width, steady s a round ({SCAN_ROUNDS}-round runs, "
+        f"recontrol at each run's round 0): {out['round_s']}")
+
+    # the MLP regime of benchmarks/scan_engine.py: U = 16, batch 4,
+    # FedSGD, 64 rounds; min of 3 timed runs after a warm-up run
+    mlp_train, mlp_test = edge_world(2048, 256)
+    mlp = MLP(MLPConfig(hidden=(16,), downsample=4))
+    ltfl = LTFLConfig(num_devices=16, samples_min=40, samples_max=60,
+                      learning_rate=0.1)
+    mlp_s = {}
+    for name, cls, kw in (("fedrunner", FedRunner, {}),
+                          ("scan_host", ScanRunner, {"rng": "host"}),
+                          ("scan_device", ScanRunner, {"rng": "device"})):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        r = cls(mlp, mlp.init(gen), ltfl, mlp_train, mlp_test,
+                FedSGDScheme(), batch_size=4, seed=0, eval_every=0,
+                device="cuda", **kw)
+        r.run(64)
+        mlp_s[name] = min(_timed(lambda: r.run(64)) for _ in range(3)) / 64
+    out["mlp_round_s"] = mlp_s
+    log(f"[scan] MLP regime (U=16, batch 4, FedSGD, 64 rounds), min of 3, "
+        f"s a round: {mlp_s}")
+    return out
+
+
+def param_gap(a, b, start) -> float:
+    """||a - b|| / ||b - start|| over all leaves, in float64: how far two
+    runs' final weights lie apart, as a share of how far ``b`` trained."""
+    import torch
+    num = sum(float(torch.sum((a[k].double() - b[k].double()) ** 2))
+              for k in b)
+    den = sum(float(torch.sum((b[k].double() - start[k].double()) ** 2))
+              for k in b)
+    return math.sqrt(num / den)
+
+
+def _quant_hook(fn):
+    """Route the quantizer wrapper the round step calls through ``fn(real,
+    g, rand, rng)`` until the returned undo is called."""
+    from repro_torch.kernels import ops
+    real = ops.stochastic_quant
+    ops.stochastic_quant = lambda g, rand, rng: fn(real, g, rand, rng)
+
+    def undo():
+        ops.stochastic_quant = real
+    return undo
+
+
+def _sweep_run(parent, spec, where: str):
+    """``parent.run_sweep(spec, SCAN_ROUNDS)`` under the sync check;
+    returns the histories and the lanes of its one bucket."""
+    parent.segment_sync_debug = "error"
+    try:
+        hists = parent.run_sweep(spec, SCAN_ROUNDS)
+    except RuntimeError as err:
+        fail(f"{where}: a host sync inside a segment: {err}")
+    finally:
+        parent.segment_sync_debug = None
+    return hists, parent._last_sweep_buckets[0]["lanes"]
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to deterministic algorithms, then as it was."""
+    import torch
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+def phase_sweep():
+    """Phase 23: run_sweep of LTFL over 2 channel regimes x 2 seeds at
+    the paper's width: one bucket, one quantizer launch per leaf per
+    round for all 4 lanes, the kernel against its plain version on the
+    bucket's own inputs, each lane bitwise against its solo run under
+    deterministic cuDNN, two planted faults, then (cuDNN as it was) the
+    bucket's time against its lanes run one after another, here and in
+    the MLP regime."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import LTFLConfig, ResNetConfig
+    from repro_torch.fed import LTFLScheme, ScanRunner, SweepSpec, \
+        scan_engine
+    from repro_torch.kernels.stochastic_quant import LAUNCHES
+    from repro_torch.models import ResNet
+
+    train, test = edge_world(20000, 2000)
+    model = ResNet(ResNetConfig())
+    n_leaves = len(model.param_specs())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen)
+    base = LTFLConfig()
+    # a narrower band and a lower power cap: laned floats only
+    narrow = dataclasses.replace(base, wireless=dataclasses.replace(
+        base.wireless, bandwidth_ul=5e6, p_max=0.05))
+    regimes = {"table2": base, "narrow": narrow}
+
+    def scheme():
+        return LTFLScheme(recontrol_every=SCAN_ROUNDS)
+
+    spec = SweepSpec.grid(schemes={"ltfl": scheme}, ltfls=regimes,
+                          seeds=SWEEP_SEEDS)
+    n_lanes, u = len(spec.lanes), base.num_devices
+    kw = dict(batch_size=50, seed=0, eval_every=0, device="cuda")
+    parent = ScanRunner(model, params, base, train, test, scheme(), **kw)
+
+    def solo_runner(lane_spec):
+        return ScanRunner(model, params, lane_spec.ltfl, train, test,
+                          scheme(), **dict(kw, seed=lane_spec.seed))
+
+    # the main path; the first round's quantizer inputs and outputs are
+    # kept (device copies: no sync) to hold the kernel against its plain
+    # version at the bucket's own (L * U, n) rows
+    recorded = []
+
+    def record(real, g, rand, rng):
+        out = real(g, rand, rng)
+        if len(recorded) < n_leaves:
+            recorded.append([t.clone() for t in (g, rand, rng, out)])
+        return out
+
+    with deterministic_cudnn():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        undo = _quant_hook(record)
+        LAUNCHES["stochastic_quant"] = 0
+        try:
+            hists, lanes = _sweep_run(parent, spec, "sweep")
+        finally:
+            undo()
+        launched = LAUNCHES["stochastic_quant"]
+        buckets = [b["lane_indices"] for b in parent._last_sweep_buckets]
+        if buckets != [list(range(n_lanes))]:
+            fail(f"sweep: buckets {buckets}, want one of {n_lanes}")
+        if launched != SCAN_ROUNDS * n_leaves:
+            fail(f"sweep: {launched} quantizer launches in {SCAN_ROUNDS} "
+                 f"rounds, want {n_leaves} a round for the whole bucket")
+        quant = _bucket_quant_check(recorded, n_leaves, n_lanes * u)
+        del recorded
+        torch.cuda.empty_cache()
+
+        # each lane against its solo run: bitwise
+        solo_params, lanes_out = [], []
+        for lane_spec, hist, lane in zip(spec.lanes, hists, lanes):
+            solo = solo_runner(lane_spec)
+            h_solo = list(solo.run(SCAN_ROUNDS))
+            solo_params.append(solo.params)
+            where = f"sweep lane {lane_spec.label}"
+            same_host_fields(hist, h_solo, where)
+            for x, y in zip(hist, h_solo):
+                if not math.isfinite(x.train_loss) or \
+                        x.train_loss != y.train_loss:
+                    fail(f"{where}: round {x.round} loss {x.train_loss!r} "
+                         f"vs its solo run's {y.train_loss!r}")
+                for f in ("delay", "energy"):
+                    a, b = getattr(x, f), getattr(y, f)
+                    if abs(a - b) > SWEEP_ACCOUNTING_REL * abs(b):
+                        fail(f"{where}: round {x.round} {f} {a!r} vs its "
+                             f"solo run's {b!r}")
+            gap = param_gap(lane.params, solo.params, params)
+            if gap != 0.0:
+                fail(f"{where}: final weights {gap} apart from its solo "
+                     f"run's")
+            lanes_out.append({"label": lane_spec.label,
+                              "final_loss": hist[-1].train_loss,
+                              "cum_delay": hist[-1].cum_delay,
+                              "cum_energy": hist[-1].cum_energy})
+            del solo
+        del lanes
+        parent._last_sweep_buckets = []
+        # the weights' gap between lanes that differ by a seed or a regime
+        gaps = {"other_seed": param_gap(solo_params[1], solo_params[0],
+                                        params),
+                "other_regime": param_gap(solo_params[2], solo_params[0],
+                                          params)}
+        faults = _planted_faults(parent, spec, hists[0], solo_params[0],
+                                 params, u)
+        del solo_params
+    log(f"[sweep] under deterministic cuDNN every lane equals its solo run "
+        f"bitwise (losses, final weights; host fields); weight gaps "
+        f"||a - b|| / ||solo - init|| between lanes {json.dumps(gaps)}, "
+        f"lane 0 under planted faults {json.dumps(faults)}")
+
+    # the bucket's steady time without building its lanes, against the
+    # lanes run one after another through the one-lane path; both run
+    # 2 x SCAN_ROUNDS rounds, and how far a lane then lies from its solo
+    # run is what the bitwise check above would face without
+    # deterministic cuDNN
+    solo_s, solos = [], []
+    for lane_spec in spec.lanes:
+        solo = solo_runner(lane_spec)
+        solo.run(SCAN_ROUNDS)
+        solo_s.append(_timed(lambda: solo.run(SCAN_ROUNDS)) / SCAN_ROUNDS)
+        solos.append((solo.history, solo.params))
+        del solo
+    parent.run_sweep(spec, SCAN_ROUNDS)
+    lanes = parent._last_sweep_buckets[0]["lanes"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bucket_s = _timed(lambda: scan_engine._run_bucket(lanes, SCAN_ROUNDS))
+    peak = torch.cuda.max_memory_allocated()
+    nondet = {"param_gap": [param_gap(lane.params, sp, params)
+                            for lane, (_, sp) in zip(lanes, solos)],
+              "loss_max_rel": [max_loss_rel(lane.history, sh)
+                               for lane, (sh, _) in zip(lanes, solos)]}
+    del lanes, solos
+    parent._last_sweep_buckets = []
+    sweep_s = _timed(lambda: parent.run_sweep(spec, SCAN_ROUNDS))
+    parent._last_sweep_buckets = []
+    torch.cuda.empty_cache()
+
+    out = {"lanes": n_lanes, "buckets": len(buckets),
+           "launches_per_round": launched // SCAN_ROUNDS,
+           "quant_vs_plain": quant, "lanes_bitwise_solo": True,
+           "param_gaps": gaps, "planted_faults": faults,
+           "nondeterministic_cudnn_lane_vs_solo": nondet,
+           "bucket_round_s": bucket_s / SCAN_ROUNDS,
+           "sweep_round_s_with_setup": sweep_s / SCAN_ROUNDS,
+           "solo_round_s": solo_s,
+           "lanes_one_after_another_round_s": sum(solo_s),
+           "bucket_speedup": sum(solo_s) / (bucket_s / SCAN_ROUNDS),
+           "max_memory_allocated": peak, "lane_results": lanes_out,
+           "mlp": _mlp_sweep_timing()}
+    log(f"[sweep] {json.dumps(out)}")
+    return out
+
+
+def _bucket_quant_check(recorded, n_leaves: int, rows: int):
+    """The quantizer's inputs and outputs of the bucket's first round
+    against its plain version, by phase 3's rules: the float32 outputs
+    the main path got, and the same inputs cast to bfloat16."""
+    import torch
+    if len(recorded) != n_leaves or any(r[0].shape[0] != rows
+                                        for r in recorded):
+        fail(f"sweep: recorded quantizer calls "
+             f"{[tuple(r[0].shape) for r in recorded]}, want {n_leaves} "
+             f"of {rows} rows")
+    f32 = quant_vs_plain([r[:3] for r in recorded], "sweep bucket f32",
+                         outs=[r[3] for r in recorded])
+    bf16_batch = []
+    for g, rand, rng, _ in recorded:
+        gb = g.to(torch.bfloat16)
+        a = gb.to(torch.float32).abs()
+        bf16_batch.append((gb, rand, torch.stack(
+            [a.amin(1), a.amax(1), rng[:, 2]], 1).contiguous()))
+    bf16 = quant_vs_plain(bf16_batch, "sweep bucket bf16")
+    quant = {"rows": rows, "leaves": n_leaves, "elements": f32[2],
+             "f32_max_abs_err": f32[0], "f32_mismatch_fraction": f32[1],
+             "bf16_max_abs_err": bf16[0], "bf16_mismatch_fraction": bf16[1]}
+    log(f"[sweep] the quantizer on the bucket's first round ({rows} rows "
+        f"a leaf, per-row [lo, hi, levels]) against its plain version: "
+        f"{json.dumps(quant)}")
+    return quant
+
+
+def _planted_faults(parent, spec, hist0, solo0, start, u: int):
+    """Two planted faults, each of which the bitwise lane check must
+    see: lanes 0 and 1 (two seeds) swap their quantized gradients
+    ("lanes": lane 0 aggregates lane 1's clients), or only the two rows
+    either side of the lanes' seam ("seam": lane 0's last client and
+    lane 1's first, the fold off by one row). Returns lane 0's weight
+    gap to its solo run and its loss's max rel to the clean lane's."""
+    import torch
+    n = len(spec.lanes) * u
+    perms = {"lanes": list(range(u, 2 * u)) + list(range(u)),
+             "seam": list(range(u - 1)) + [u, u - 1]
+             + list(range(u + 1, 2 * u))}
+    faults = {}
+    for name, perm in perms.items():
+        idx = torch.tensor(perm + list(range(2 * u, n)), device="cuda")
+
+        def permute(real, g, rand, rng, idx=idx):
+            return torch.index_select(real(g, rand, rng), 0, idx)
+
+        undo = _quant_hook(permute)
+        try:
+            hists, lanes = _sweep_run(parent, spec,
+                                      f"sweep planted fault {name}")
+        finally:
+            undo()
+        faults[name] = {"param_gap": param_gap(lanes[0].params, solo0,
+                                               start),
+                        "loss_max_rel": max_loss_rel(hists[0], hist0)}
+        del lanes
+        parent._last_sweep_buckets = []
+        if not faults[name]["param_gap"] > 0.0:
+            fail(f"sweep: the planted fault {name!r} left lane 0's "
+                 f"weights equal to its solo run's")
+    return faults
+
+
+def _mlp_sweep_timing():
+    """The MLP regime of benchmarks/scan_engine.py (U = 16, batch 4, 64
+    rounds): a bucket of 4 seed lanes against the same lanes run one
+    after another, each alone; min of 3 timed runs after a warm-up run,
+    for FedSGD and for LTFL (recontrol once a run)."""
+    import torch
+    from repro_torch.configs import LTFLConfig
+    from repro_torch.fed import FedSGDScheme, LTFLScheme, ScanRunner, \
+        scan_engine
+    from repro_torch.models import MLP, MLPConfig
+    rounds, seeds = 64, (0, 1, 2, 3)
+    train, test = edge_world(2048, 256)
+    mlp = MLP(MLPConfig(hidden=(16,), downsample=4))
+    ltfl = LTFLConfig(num_devices=16, samples_min=40, samples_max=60,
+                      learning_rate=0.1)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = mlp.init(gen)
+    out = {}
+    for name, factory in (("fedsgd", FedSGDScheme),
+                          ("ltfl", lambda: LTFLScheme(
+                              recontrol_every=rounds))):
+        def make(seed):
+            return ScanRunner(mlp, params, ltfl, train, test, factory(),
+                              batch_size=4, seed=seed, eval_every=0,
+                              device="cuda")
+        parent = make(0)
+        hists = parent.run_sweep(list(seeds), rounds,
+                                 scheme_factory=factory)
+        if not all(math.isfinite(r.train_loss) for h in hists for r in h):
+            fail(f"MLP sweep {name}: a loss is not finite")
+        lanes = parent._last_sweep_buckets[0]["lanes"]
+        bucket = min(_timed(lambda: scan_engine._run_bucket(lanes, rounds))
+                     for _ in range(3)) / rounds
+        solo = []
+        for seed in seeds:
+            r = make(seed)
+            r.run(rounds)
+            solo.append(min(_timed(lambda: r.run(rounds))
+                            for _ in range(3)) / rounds)
+        out[name] = {"bucket_round_s": bucket,
+                     "lanes_one_after_another_round_s": sum(solo),
+                     "solo_round_s": solo,
+                     "bucket_speedup": sum(solo) / bucket}
+    return out
+
+
 def serve_arch(name: str):
     from repro_torch.configs import get_arch
     return get_arch(name)
@@ -1826,6 +2478,10 @@ def main() -> None:
              f"{before} -> {all_launches()}")
     log(f"[serve] kernel launches unchanged by phases 19-20: {before}")
     log(f"[serve] summary {json.dumps(serve_rows)}")
+    # the scanned engine and sweep lanes
+    phase_scan_small()
+    scan = phase_scan_main(profile_dir)
+    sweep = phase_sweep()
     log(f"[done] {time.time() - t_start:.1f} s")
 
     def per_family(key):
@@ -1865,7 +2521,8 @@ def main() -> None:
         "launches": launches,
         "datacenter_launches": dc_launches["stochastic_quant"],
         "family_datacenter_launches": per_family("stochastic_quant"),
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err,
+                           sweep["quant_vs_plain"]["f32_max_abs_err"]),
         "max_abs_err_vs_plain": max_err,
         "ms": t["round_kernel_ms"],
         "kernel_ms": t["round_kernel_ms"],
@@ -1878,6 +2535,10 @@ def main() -> None:
         "largest_leaf_bound_ms": t["largest_bound_ms"],
         "eager_ms": t["round_kernel_eager_ms"],
         "plain_eager_ms": t["round_plain_eager_ms"],
+        "scan_launches_per_round": scan["launches_per_round"],
+        "sweep_bucket_launches_per_round": sweep["launches_per_round"],
+        "sweep_bucket_lanes": sweep["lanes"],
+        "sweep_bucket_vs_plain": sweep["quant_vs_plain"],
     }, block_row("block_norms", "norms", dc_launches["block_norms"],
                  norm_err, {}),
         block_row("apply_block_mask", "mask",

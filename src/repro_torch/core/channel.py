@@ -13,14 +13,28 @@ struct-of-arrays device representation: one (U,) array per attribute;
 rates and PERs broadcast over the device axis and any leading candidate
 axes, so the controller scores K candidate power vectors as one (K, U)
 array op.
+
+Device twins (the scanned engine's per-round path, ``repro_torch.fed.
+scan_engine``), held against the reference's lines 187-363:
+``ChannelArrays`` (``ChannelState.to_arrays``) holds float32 tensors on
+a device, and ``expected_rate_dev`` / ``packet_error_rate_dev`` /
+``sample_transmissions_dev`` / ``draw_fading_dev`` evaluate the same
+formulas (the same Gauss-Laguerre nodes) in float32 on that device, so a
+segment of rounds runs without a host round trip. Randomness comes from
+an explicit ``torch.Generator``. A config field may be a Python float or
+a float32 tensor (a sweep's per-lane value, shaped to broadcast against
+the channel arrays); two config values are multiplied in float32 either
+way, as the reference does.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
-from typing import Sequence, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import WirelessConfig
 
@@ -127,6 +141,36 @@ class ChannelState:
             self, fading_mean=fading.astype(self.fading_mean.dtype),
             interference=interference.astype(self.interference.dtype))
 
+    def to_arrays(self, device: Union[str, torch.device, None] = None,
+                  dtype: torch.dtype = torch.float32) -> "ChannelArrays":
+        """The device twin (float32 by default: what the _dev functions
+        compute in whatever the host storage)."""
+        return ChannelArrays(*(
+            torch.as_tensor(np.asarray(f), dtype=dtype, device=device)
+            for f in (self.distance, self.fading_mean, self.interference,
+                      self.cpu_hz, self.num_samples)))
+
+
+class ChannelArrays(NamedTuple):
+    """Device twin of ``ChannelState``: each field a float32 tensor,
+    (U,) or (N,), or (L, U) for a bucket of sweep lanes.
+    ``num_samples`` is float32 (it only enters weighted sums)."""
+
+    distance: torch.Tensor
+    fading_mean: torch.Tensor
+    interference: torch.Tensor
+    cpu_hz: torch.Tensor
+    num_samples: torch.Tensor
+
+    def take(self, idx: torch.Tensor) -> "ChannelArrays":
+        """The (U,) cohort view of an (N,) population, on the device."""
+        return ChannelArrays(*(torch.index_select(f, 0, idx) for f in self))
+
+    @staticmethod
+    def stack(views: Sequence["ChannelArrays"]) -> "ChannelArrays":
+        """Lanes' (U,) views as one (L, U) view."""
+        return ChannelArrays(*(torch.stack(fs) for fs in zip(*views)))
+
 
 Devices = Union[ChannelState, DeviceChannel, Sequence[DeviceChannel]]
 
@@ -179,3 +223,83 @@ def sample_transmissions(cfg: WirelessConfig, devices: Devices,
     state = as_channel_state(devices)
     qs = packet_error_rate(cfg, state, np.asarray(powers, np.float64))
     return (rng.random(state.num_devices) >= qs).astype(np.int64)
+
+
+# --------------------------------------------------------------------------- #
+# device twins (float32, on the channel arrays' device)
+# --------------------------------------------------------------------------- #
+def f32(x):
+    """A config value as float32: a tensor as it is, a Python number as
+    ``np.float32`` (a scalar operand that torch applies in float32)."""
+    return x if isinstance(x, torch.Tensor) else np.float32(x)
+
+
+@functools.lru_cache(maxsize=None)
+def _gl_nodes(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """The Gauss-Laguerre nodes, weights and clamped nodes as float32
+    tensors on ``device``, uploaded once per device."""
+    x = torch.as_tensor(_GL_X, dtype=torch.float32, device=device)
+    w = torch.as_tensor(_GL_W, dtype=torch.float32, device=device)
+    return x, w, torch.clamp(x, min=1e-12)
+
+
+def gl_nodes(device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _gl_nodes(torch.device(device))
+
+
+def _mean_gain_dev(ch: ChannelArrays) -> torch.Tensor:
+    return ch.fading_mean * ch.distance ** -2.0
+
+
+def _noise_dev(cfg: WirelessConfig, ch: ChannelArrays) -> torch.Tensor:
+    # a float32 product of the two config values, as the reference's
+    return ch.interference + f32(cfg.bandwidth_ul) * f32(cfg.n0)
+
+
+def expected_rate_dev(cfg: WirelessConfig, ch: ChannelArrays,
+                      power: torch.Tensor) -> torch.Tensor:
+    """Device twin of ``expected_rate`` (Eq. 1): the same quadrature in
+    float32, broadcasting over the device axis and any leading axes."""
+    x, w, _ = gl_nodes(ch.distance.device)
+    p = power.to(torch.float32)
+    c = p * _mean_gain_dev(ch) / _noise_dev(cfg, ch)
+    val = torch.log2(1.0 + c[..., None] * x)
+    return cfg.bandwidth_ul * torch.sum(w * val, dim=-1)
+
+
+def packet_error_rate_dev(cfg: WirelessConfig, ch: ChannelArrays,
+                          power: torch.Tensor) -> torch.Tensor:
+    """Device twin of ``packet_error_rate`` (Eq. 3), float32."""
+    _, w, x = gl_nodes(ch.distance.device)
+    p = power.to(torch.float32)
+    c = cfg.waterfall * _noise_dev(cfg, ch) / (p * _mean_gain_dev(ch))
+    val = 1.0 - torch.exp(-c[..., None] / x)
+    return torch.clamp(torch.sum(w * val, dim=-1), 0.0, 1.0)
+
+
+def sample_transmissions_dev(cfg: WirelessConfig, ch: ChannelArrays,
+                             power: torch.Tensor,
+                             generator: Optional[torch.Generator] = None
+                             ) -> torch.Tensor:
+    """Device twin of ``sample_transmissions`` (Eq. 4): alpha ~
+    Bernoulli(1 - q) from ``generator``, float32 in {0, 1}."""
+    qs = packet_error_rate_dev(cfg, ch, power)
+    u = torch.rand(qs.shape, generator=generator, device=qs.device,
+                   dtype=torch.float32)
+    return (u >= qs).to(torch.float32)
+
+
+def draw_fading_dev(cfg: WirelessConfig, generator: torch.Generator,
+                    size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Device twin of ``ChannelState.draw_fading``: one block-fading
+    epoch's (fading_mean, interference) for ``size`` devices, float32 on
+    the generator's device. The distributions are the host sampler's;
+    the stream is torch's (Philox), not numpy's."""
+    device = generator.device
+    fading = torch.empty(size, dtype=torch.float32, device=device)
+    fading.exponential_(1.0, generator=generator)
+    interference = torch.empty(size, dtype=torch.float32, device=device)
+    interference.uniform_(cfg.interference_min, cfg.interference_max,
+                          generator=generator)
+    return cfg.fading_scale * fading, interference

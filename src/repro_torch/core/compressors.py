@@ -17,15 +17,20 @@ Contract:
     server_transform(aggregated) -> aggregated
 
 ``seed`` is the round's integer seed (the reference's round key is
-``PRNGKey(seed)``). Randomness: by default ``ltfl_quantizer`` seeds a
-``torch.Generator`` on the gradients' device with it and draws one
-(C, *leaf.shape) uniform tensor per leaf, in the tree's (the reference's)
-leaf order, each just before that leaf's quantizer launch: only one
-leaf's uniforms are held at a time (all of them at once would be 13.4 GB
-on granite-8b's widths at 2 layers and 4 clients). ``uniforms`` replaces
-that draw: a callable ``(seed, n_clients, shapes) -> iterable of tensors
-(C, *shape), one per leaf`` — the parity tests feed the reference's own
-draws through it.
+``PRNGKey(seed)``), or a ``torch.Generator`` to draw from (the scanned
+engine's device rng), or a tuple of either, one per sweep lane, whose
+lanes' clients are stacked in order along the client axis. Randomness:
+by default ``ltfl_quantizer`` seeds a ``torch.Generator`` on the
+gradients' device with an integer seed and draws one (C, *leaf.shape)
+uniform tensor per leaf, in the tree's (the reference's) leaf order,
+each just before that leaf's quantizer launch: only one leaf's uniforms
+are held at a time (all of them at once would be 13.4 GB on granite-8b's
+widths at 2 layers and 4 clients). With lanes, each lane draws its own
+clients' rows from its own seed, exactly as it would alone, and one
+launch per leaf covers all of them. ``uniforms`` replaces that draw: a
+callable ``(seed, n_clients, shapes) -> iterable of tensors (C, *shape),
+one per leaf`` — the parity tests feed the reference's own draws through
+it.
 
 The paper's Section-6.1 baselines: FedSGD and FedMP upload full
 precision (``identity_compressor``), SignSGD the sign with a server
@@ -53,7 +58,7 @@ class Compressor:
     """One scheme's compression stage (see module docstring)."""
 
     name: str
-    compress: Callable[[Tree, torch.Tensor, int, Any], Tuple[Tree, Any]]
+    compress: Callable[[Tree, torch.Tensor, Any, Any], Tuple[Tree, Any]]
     init_state: Callable[[Tree, int], Any] = \
         field(default=lambda params, n_clients: ())
     server_transform: Callable[[Tree], Tree] = field(default=lambda g: g)
@@ -64,17 +69,37 @@ def identity_compressor() -> Compressor:
     return Compressor(name="none", compress=lambda g, d, s, st: (g, st))
 
 
-def torch_uniforms(seed: int, n_clients: int,
+def torch_uniforms(seed, n_clients: int,
                    shapes: Sequence[Tuple[int, ...]],
                    device: torch.device) -> Iterator[torch.Tensor]:
     """The port's own draws: a generator on ``device`` seeded with the
-    round seed, one (C, *shape) uniform tensor per leaf, in order, each
-    drawn when the caller asks for it."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
+    round seed (or ``seed`` itself, a generator), one (C, *shape)
+    uniform tensor per leaf, in order, each drawn when the caller asks
+    for it."""
+    if isinstance(seed, torch.Generator):
+        gen = seed
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
     for s in shapes:
         yield torch.rand((n_clients,) + tuple(s), generator=gen,
                          device=device, dtype=torch.float32)
+
+
+def _lane_uniforms(seed, n_clients: int,
+                   shapes: Sequence[Tuple[int, ...]], device: torch.device,
+                   uniforms: Optional[UniformSource]
+                   ) -> Iterable[torch.Tensor]:
+    """Per leaf, the (C, *shape) uniforms: one lane's draw, or with a
+    tuple of per-lane seeds each lane's rows from its own seed, stacked
+    in lane order."""
+    lanes = seed if isinstance(seed, tuple) else (seed,)
+    rows = n_clients // len(lanes)
+    draws = [torch_uniforms(s, rows, shapes, device) if uniforms is None
+             else uniforms(s, rows, shapes) for s in lanes]
+    if len(draws) == 1:
+        return draws[0]
+    return (torch.cat([r.to(device) for r in rs]) for rs in zip(*draws))
 
 
 def ltfl_quantizer(*, uniforms: Optional[UniformSource] = None
@@ -90,10 +115,7 @@ def ltfl_quantizer(*, uniforms: Optional[UniformSource] = None
         n_clients = leaves[0].shape[0]
         shapes = [tuple(x.shape[1:]) for x in leaves]
         device = leaves[0].device
-        if uniforms is None:
-            rands = torch_uniforms(seed, n_clients, shapes, device)
-        else:
-            rands = uniforms(seed, n_clients, shapes)
+        rands = _lane_uniforms(seed, n_clients, shapes, device, uniforms)
         delta = delta.to(device=device, dtype=torch.float32)
         bits = torch.clamp(delta, min=1.0)
         out = {}

@@ -10,6 +10,12 @@ give (K,) terms in one array op. ``inclusion`` / ``population_samples``
 switch on the Horvitz-Thompson partial-participation convention and
 ``staleness`` the buffered-async attenuation residual, as in the
 reference.
+
+``gamma_dev`` (reference lines 149-196) is the float32 device twin of
+``gamma`` for in-segment control. The scanned engine's REPORTED gamma is
+not it: the engine logs gamma's per-device inputs and reduces them on
+the host in float64 with ``gamma`` (``repro_torch.fed.scan_engine``), so
+a sweep lane and its solo run share one code path.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import LTFLConfig
 
@@ -95,3 +102,50 @@ def gamma(ltfl: LTFLConfig, range_sq_sums, deltas, rhos, pers,
     """Gamma^n (Eq. 29); scalar for (U,) inputs, (K,) for (K, U) inputs."""
     return gap_terms(ltfl, range_sq_sums, deltas, rhos, pers,
                      num_samples, **kw).total
+
+
+def gamma_dev(ltfl: LTFLConfig,
+              range_sq_sums: torch.Tensor,
+              deltas: torch.Tensor,
+              rhos: torch.Tensor,
+              pers: torch.Tensor,
+              num_samples: torch.Tensor,
+              *,
+              inclusion: Optional[torch.Tensor] = None,
+              population_samples=None,
+              staleness: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Device twin of ``gamma``: Eq. 29 in float32 from (U,) tensors,
+    reducing over the last axis; the partial-participation arguments go
+    together, as for ``gap_terms``."""
+    f = torch.float32
+    deltas = deltas.to(f)
+    ns = num_samples.to(f)
+    if inclusion is not None:
+        inv = 1.0 / torch.clamp(inclusion.to(f), min=1e-12)
+    else:
+        inv = 1.0
+    steps = torch.clamp(2.0 ** deltas - 1.0, min=1e-12)
+    quant = 3.0 * torch.sum(range_sq_sums.to(f) * inv
+                            / (4.0 * steps * steps), dim=-1)
+    prune = 3.0 * ltfl.lipschitz ** 2 * ltfl.d_sq \
+        * torch.sum(rhos.to(f) * inv, dim=-1)
+    if population_samples is not None:
+        n_total = torch.as_tensor(population_samples, dtype=f,
+                                  device=ns.device)
+    else:
+        n_total = torch.sum(ns, dim=-1)
+    trans = 12.0 * ltfl.v1 / n_total * torch.sum(
+        ns * pers.to(f) * inv, dim=-1)
+    if inclusion is not None:
+        part = 12.0 * ltfl.v1 / n_total ** 2 * torch.sum(
+            ns * ns * (inv - 1.0) * inv, dim=-1)
+    else:
+        part = 0.0
+    if staleness is not None:
+        atten = 1.0 - 1.0 / torch.sqrt(1.0 + staleness.to(f))
+        stale = 12.0 * ltfl.v1 / n_total * torch.sum(ns * atten * inv,
+                                                     dim=-1)
+    else:
+        stale = 0.0
+    scale = 1.0 / (1.0 - 12.0 * ltfl.v2)
+    return scale * (quant + prune + trans + part + stale)

@@ -7,15 +7,28 @@ numpy arithmetic, bitwise. Every function accepts a scalar
 ``payload_bits`` / ``rho`` / ``power`` broadcast over the device axis and
 any leading candidate axes. ``rate=`` lets one expected-rate quadrature
 serve both the delay and energy evaluations.
+
+The ``*_dev`` twins and ``round_accounting_dev`` (held against the
+reference's lines 103-164) evaluate the same formulas in float32 over a
+``ChannelArrays`` view on the device, for the scanned engine; they
+broadcast over a leading lane axis too, where the config's floats are
+(L, 1) tensors. The buffered-async accounting is not ported yet.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import LTFLConfig, WirelessConfig
-from repro_torch.core.channel import as_channel_state, expected_rate
+from repro_torch.core.channel import (
+    ChannelArrays,
+    as_channel_state,
+    expected_rate,
+    expected_rate_dev,
+    f32,
+)
 
 
 def local_train_delay(cfg: WirelessConfig, dev, rho) -> np.ndarray:
@@ -79,3 +92,72 @@ def round_energy(ltfl: LTFLConfig, devices, payload_bits: Sequence[float],
         ltfl.wireless, state, np.asarray(payload_bits, np.float64),
         np.asarray(rhos, np.float64), np.asarray(powers, np.float64))
     return float(np.sum(per_dev))
+
+
+# --------------------------------------------------------------------------- #
+# device twins (float32, used inside the scanned engine's segment loop)
+# --------------------------------------------------------------------------- #
+def local_train_delay_dev(cfg: WirelessConfig, ch: ChannelArrays,
+                          rho: torch.Tensor) -> torch.Tensor:
+    """Eq. 31 on the device: T_lt = N_u c0 (1 - rho) / f_u."""
+    return (ch.num_samples * f32(cfg.cycles_per_sample)
+            * (1.0 - rho) / ch.cpu_hz)
+
+
+def upload_delay_dev(cfg: WirelessConfig, ch: ChannelArrays,
+                     payload_bits: torch.Tensor, rho: torch.Tensor,
+                     power: torch.Tensor, *,
+                     rate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Eq. 32 on the device: T_lu = delta~ (1 - rho) / R(p)."""
+    if rate is None:
+        rate = expected_rate_dev(cfg, ch, power)
+    return payload_bits * (1.0 - rho) / torch.clamp(rate, min=1e-9)
+
+
+def local_train_energy_dev(cfg: WirelessConfig, ch: ChannelArrays,
+                           rho) -> torch.Tensor:
+    """Eq. 35 on the device: E_lt = k f^(sigma-1) N c0 (1 - rho)."""
+    return (f32(cfg.k_eff)
+            * ch.cpu_hz ** (f32(cfg.sigma_exp) - np.float32(1.0))
+            * ch.num_samples
+            * f32(cfg.cycles_per_sample)
+            * (1.0 - rho))
+
+
+def device_round_delay_dev(cfg: WirelessConfig, ch: ChannelArrays,
+                           payload_bits: torch.Tensor, rho: torch.Tensor,
+                           power: torch.Tensor, *,
+                           rate: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    return (local_train_delay_dev(cfg, ch, rho)
+            + upload_delay_dev(cfg, ch, payload_bits, rho, power,
+                               rate=rate))
+
+
+def device_round_energy_dev(cfg: WirelessConfig, ch: ChannelArrays,
+                            payload_bits: torch.Tensor, rho: torch.Tensor,
+                            power: torch.Tensor, *,
+                            rate: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Eq. 37 on the device: E = E_lt + p * T_lu."""
+    return (local_train_energy_dev(cfg, ch, rho)
+            + power * upload_delay_dev(cfg, ch, payload_bits, rho, power,
+                                       rate=rate))
+
+
+def round_accounting_dev(ltfl: LTFLConfig, ch: ChannelArrays,
+                         payload_bits: torch.Tensor, rho: torch.Tensor,
+                         power: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One round's (delay, energy) on the device: Eq. 34 (the slowest
+    device gates the round, plus the server delay) and Eq. 37 summed,
+    over the last (device) axis, from one shared rate quadrature. (U,)
+    inputs give scalars; a lane bucket's (L, U) gives (L,)."""
+    cfg = ltfl.wireless
+    rate = expected_rate_dev(cfg, ch, power)
+    delay = torch.amax(device_round_delay_dev(
+        cfg, ch, payload_bits, rho, power, rate=rate), dim=-1,
+        keepdim=True) + ltfl.server_delay
+    energy = torch.sum(device_round_energy_dev(
+        cfg, ch, payload_bits, rho, power, rate=rate), dim=-1)
+    return delay.squeeze(-1), energy

@@ -38,10 +38,23 @@ the drop draw uses a generator on the step's device seeded with
 ``seed + DROP_STREAM``, a stream of its own. ``drop_uniforms`` replaces
 that draw: a callable ``(seed, n_clients) -> (C,) tensor`` — the parity
 tests feed the reference's own draw through it.
+
+Lanes: ``step.lanes`` runs L independent experiments (sweep lanes, each
+with its own parameters, controls and seed) as ONE step over L * C
+clients: each lane prunes its own weights (ranked within the lane), the
+lanes' per-client stacks are concatenated on the client axis (a lane's
+shared 1-D leaves expanded per client), one vmap computes every client's
+gradient, and the gate and the compressor run on the (L * C, ...) stack —
+one quantizer launch per leaf for the whole bucket. Aggregation and the
+update then run per lane. ``batch`` is (L * C, B, ...) and
+``comp_state`` covers L * C clients. With one lane it is exactly
+``step``. The reference vmaps its step over lanes instead; here the
+quantizer is a ctypes call on a data pointer, which ``vmap`` cannot
+batch.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.func import grad_and_value, vmap
@@ -116,51 +129,100 @@ def make_fl_train_step(model, optimizer: Optimizer, n_clients: int, *,
              if drop_uniforms is None else drop_uniforms(seed, n_clients))
         return (u.to(device) >= controls["drop_prob"]).to(torch.float32)
 
-    def step(params: Tree, opt_state: Any, comp_state: Any,
-             batch: Dict[str, torch.Tensor],
-             controls: Dict[str, torch.Tensor], seed: int
-             ) -> Tuple[Tree, Any, Any, Dict[str, torch.Tensor]]:
-        if prune:
-            pruned, masks = _prune(params, controls["rho"])
+    def lanes(params_l: Sequence[Tree], opt_states: Sequence[Any],
+              comp_state: Any, batch: Dict[str, torch.Tensor],
+              controls_l: Sequence[Dict[str, torch.Tensor]],
+              seeds: Sequence[Any]
+              ) -> Tuple[List[Tree], List[Any], Any,
+                         List[Dict[str, torch.Tensor]]]:
+        n_lanes = len(params_l)
+        pruned_l, masks_l = [], []
+        for params, ctl in zip(params_l, controls_l):
+            p, m = _prune(params, ctl["rho"]) if prune else (params, None)
+            pruned_l.append(p)
+            masks_l.append(m)
+        ref = params_l[0]
+        if n_lanes == 1:
+            pruned, masks = pruned_l[0], masks_l[0]
+            # stacked leaves (pruned per client) map over dim 0; shared
+            # leaves (1-D, exempt from pruning) are broadcast
+            in_dims = {k: 0 if v.dim() > ref[k].dim() else None
+                       for k, v in pruned.items()}
         else:
-            pruned, masks = params, None
-        # stacked leaves (pruned per client) map over dim 0; shared
-        # leaves (1-D, exempt from pruning) are broadcast
-        in_dims = {k: 0 if v.dim() > params[k].dim() else None
-                   for k, v in pruned.items()}
+            # the lanes' clients folded into one client axis: a shared
+            # leaf is expanded per client of its own lane
+            pruned = {k: torch.cat([_per_client(p[k], ref[k], n_clients)
+                                    for p in pruned_l]) for k in ref}
+            masks = None if not prune else {
+                k: (torch.cat([m[k] for m in masks_l])
+                    if masks_l[0][k].dim() > ref[k].dim() else masks_l[0][k])
+                for k in ref}
+            in_dims = {k: 0 for k in ref}
+        del pruned_l, masks_l
         grads, losses = vmap(per_client, in_dims=(in_dims, 0))(
             pruned, batch)
         del pruned               # C weight copies: free before compressing
         if prune:
             grads = gate_pytree(grads, masks, prune_block)
         rsqs = range_sq_sum(grads, client_axis=True)
-        grads, comp_state = comp.compress(grads, controls["delta"], seed,
-                                          comp_state)
+        delta = (controls_l[0]["delta"] if n_lanes == 1 else
+                 torch.cat([c["delta"] for c in controls_l]))
+        grads, comp_state = comp.compress(
+            grads, delta, seeds[0] if n_lanes == 1 else tuple(seeds),
+            comp_state)
 
-        alpha = _alpha(controls, seed, losses.device)
-        g = aggregate(grads, controls["weights"], alpha,
-                      denom=controls.get("agg_denom"))
-        del grads
-        g = comp.server_transform(g)
-        lr = controls.get("lr")
-        if lr is None:
-            updates, opt_state = optimizer.update(g, opt_state, params)
-        elif optimizer.update_with_lr is None:
-            raise ValueError("controls['lr'] needs an optimizer with "
-                             "update_with_lr")
-        else:
-            updates, opt_state = optimizer.update_with_lr(
-                g, opt_state, params, lr)
-        params = apply_updates(params, updates)                 # Eq. 20
-        metrics = {
-            "loss": torch.mean(losses),
-            "grad_norm": global_norm(g),
-            "clients_received": torch.sum(alpha),
-            "range_sq": rsqs,
-            "range_sq_mean": torch.mean(rsqs),
-        }
-        return params, opt_state, comp_state, metrics
+        rows = [slice(i * n_clients, (i + 1) * n_clients)
+                for i in range(n_lanes)]
+        lane_grads = [grads] if n_lanes == 1 else [
+            {k: v[r] for k, v in grads.items()} for r in rows]
+        del grads          # each lane's share is freed once aggregated
+        out_params, out_opt, out_metrics = [], [], []
+        for i, (params, opt_state, controls, seed) in enumerate(
+                zip(params_l, opt_states, controls_l, seeds)):
+            alpha = _alpha(controls, seed, losses.device)
+            g = aggregate(lane_grads[i], controls["weights"], alpha,
+                          denom=controls.get("agg_denom"))
+            lane_grads[i] = None
+            g = comp.server_transform(g)
+            lr = controls.get("lr")
+            if lr is None:
+                updates, opt_state = optimizer.update(g, opt_state, params)
+            elif optimizer.update_with_lr is None:
+                raise ValueError("controls['lr'] needs an optimizer with "
+                                 "update_with_lr")
+            else:
+                updates, opt_state = optimizer.update_with_lr(
+                    g, opt_state, params, lr)
+            out_params.append(apply_updates(params, updates))   # Eq. 20
+            out_opt.append(opt_state)
+            lane_rsqs = rsqs[rows[i]]
+            out_metrics.append({
+                "loss": torch.mean(losses[rows[i]]),
+                "grad_norm": global_norm(g),
+                "clients_received": torch.sum(alpha),
+                "range_sq": lane_rsqs,
+                "range_sq_mean": torch.mean(lane_rsqs),
+            })
+        return out_params, out_opt, comp_state, out_metrics
+
+    def step(params: Tree, opt_state: Any, comp_state: Any,
+             batch: Dict[str, torch.Tensor],
+             controls: Dict[str, torch.Tensor], seed
+             ) -> Tuple[Tree, Any, Any, Dict[str, torch.Tensor]]:
+        p, o, c, m = lanes([params], [opt_state], comp_state, batch,
+                           [controls], [seed])
+        return p[0], o[0], c, m[0]
 
     step.compressor = comp
+    step.lanes = lanes
     step.init_comp_state = lambda params: comp.init_state(params, n_clients)
     return step
+
+
+def _per_client(x: torch.Tensor, leaf: torch.Tensor,
+                n_clients: int) -> torch.Tensor:
+    """A pruned leaf as (C, ...): a per-client stack as it is, a shared
+    leaf (1-D, exempt from pruning) expanded over the clients."""
+    if x.dim() > leaf.dim():
+        return x
+    return x.expand((n_clients,) + tuple(x.shape))

@@ -1,8 +1,8 @@
 """Stochastic gradient quantization (paper Eq. 16-18, Lemma 1).
 
 Held against ``repro.core.quantization`` (``quantize_dequantize``,
-``quantize_pytree``, ``range_sq_sum``, ``payload_bits_host``,
-``quant_error_bound``). The magnitude range [g_min, g_max] of each tensor
+``quantize_pytree``, ``range_sq_sum``, ``payload_bits``,
+``payload_bits_host``, ``quant_error_bound``). The magnitude range [g_min, g_max] of each tensor
 is divided uniformly into 2^delta - 1 steps and each |g_v| rounds
 stochastically to a neighbouring level (Eq. 17), so E[Q(g)] = g (Lemma
 1). Randomness is an input: every function takes the uniforms it uses,
@@ -55,13 +55,35 @@ def quant_error_bound(range_sq_sum: torch.Tensor,
     return range_sq_sum / (4.0 * n * n)
 
 
+def _payload_bits_impl(num_params, bits, xi_bits, as_f32):
+    """Eq. 18 in float32: total uplink bits delta~ = V * delta + xi.
+
+    The one formula both halves evaluate (the reference's
+    ``_payload_bits_impl``): ``payload_bits`` on tensors, and
+    ``payload_bits_host`` on numpy, each a float32 product then a
+    float32 sum, so device and host accounting cannot drift."""
+    return as_f32(num_params) * as_f32(bits) + as_f32(xi_bits)
+
+
+def _torch_f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    return np.float32(x)
+
+
+def payload_bits(num_params, bits: torch.Tensor, xi_bits) -> torch.Tensor:
+    """Eq. 18 on tensors (``bits`` a tensor; the counts may be Python
+    numbers), float32."""
+    return _payload_bits_impl(num_params, bits, xi_bits, _torch_f32)
+
+
 def payload_bits_host(num_params, bits, xi_bits) -> np.ndarray:
-    """Eq. 18 in float32: total uplink bits delta~ = V * delta + xi,
-    returned as float64 for the host accounting chain (the reference's
-    shared f32 formula, so decisions agree bitwise)."""
-    return np.asarray(np.asarray(num_params, np.float32)
-                      * np.asarray(bits, np.float32)
-                      + np.asarray(xi_bits, np.float32), np.float64)
+    """Numpy twin of ``payload_bits``, returned as float64 for the host
+    accounting chain (the shared float32 formula, so decisions agree
+    bitwise)."""
+    return np.asarray(_payload_bits_impl(
+        num_params, bits, xi_bits,
+        lambda x: np.asarray(x, np.float32)), np.float64)
 
 
 def range_sq_sum(g: Tree, *, client_axis: bool = False) -> torch.Tensor:

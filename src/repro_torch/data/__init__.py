@@ -1,5 +1,5 @@
-"""Data: synthetic CIFAR, partitions and client batching, held against
-``repro.data`` (numpy on both sides, bitwise)."""
+"""Data: synthetic CIFAR and token sequences, partitions and client
+batching, held against ``repro.data`` (numpy on both sides, bitwise)."""
 
 from repro_torch.data.partition import (
     PackedParts,
@@ -10,13 +10,14 @@ from repro_torch.data.partition import (
     population_partition_reference,
 )
 from repro_torch.data.pipeline import ArrayDataset, ClientBatcher
-from repro_torch.data.synthetic import synthetic_cifar
+from repro_torch.data.synthetic import synthetic_cifar, synthetic_lm
 
 __all__ = [
     "ArrayDataset",
     "ClientBatcher",
     "PackedParts",
     "synthetic_cifar",
+    "synthetic_lm",
     "iid_partition",
     "dirichlet_partition",
     "population_partition",

@@ -1,14 +1,17 @@
 """Minimal batching pipeline for the federated loop.
 
-Held against ``repro.data.pipeline`` (``ArrayDataset``, ``ClientBatcher``):
-host numpy on both sides, so batch indices drawn from a seeded stream are
-bitwise equal. ``ClientBatcher`` owns every client's index partition into
-one shared backing dataset and draws the stacked (C, B) index matrix the
+Held against ``repro.data.pipeline`` (``ArrayDataset`` with ``epochs``,
+``ClientBatcher`` with ``client_sizes`` and ``padded_parts``): host numpy
+on both sides, so batch indices drawn from a seeded stream are bitwise
+equal. ``ClientBatcher`` owns every client's index partition into one
+shared backing dataset and draws the stacked (C, B) index matrix the
 round step consumes; the runner gathers it and moves it to the device.
+The scanned engine's device rng instead uploads ``padded_parts``, the
+(N, W) zero-padded index table, and draws from it on the device.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -31,6 +34,16 @@ class ArrayDataset:
         replace = batch_size > self.size
         idx = rng.choice(self.size, size=batch_size, replace=replace)
         return {k: v[idx] for k, v in self.arrays.items()}
+
+    def epochs(self, batch_size: int, rng: np.random.Generator
+               ) -> Iterator[Dict[str, np.ndarray]]:
+        """Endless shuffled epochs of full batches (a short tail is
+        dropped)."""
+        while True:
+            perm = rng.permutation(self.size)
+            for ofs in range(0, self.size - batch_size + 1, batch_size):
+                idx = perm[ofs:ofs + batch_size]
+                yield {k: v[idx] for k, v in self.arrays.items()}
 
 
 class ClientBatcher:
@@ -77,3 +90,25 @@ class ClientBatcher:
         """One stacked (C, B, ...) random batch (host numpy)."""
         idx = self.batch_indices(batch_size, rng, clients)
         return {k: v[idx] for k, v in self.base.arrays.items()}
+
+    def client_sizes(self) -> np.ndarray:
+        if isinstance(self.parts, PackedParts):
+            return self.parts.client_sizes()
+        return np.asarray([p.size for p in self.parts], dtype=np.int64)
+
+    def padded_parts(self, width: Optional[int] = None,
+                     dtype=np.int32) -> np.ndarray:
+        """The (N, W) zero-padded per-client index table: row u's first
+        ``client_sizes()[u]`` entries are client u's global indices, the
+        rest zeros (an empty row stays all zeros). One vectorized build
+        for either form of ``parts``."""
+        if isinstance(self.parts, PackedParts):
+            return self.parts.padded(width, dtype=dtype)
+        sizes = self.client_sizes()
+        w = int(max(int(sizes.max(initial=0)), width or 0))
+        table = np.zeros((self.num_clients, w), dtype)
+        mask = np.arange(w) < sizes[:, None]
+        if self.parts:
+            table[mask] = np.concatenate(
+                [p for p in self.parts if p.size])
+        return table

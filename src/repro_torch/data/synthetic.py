@@ -1,7 +1,8 @@
 """Synthetic CIFAR-shaped data (the machines running this have no network).
 
-Held against ``repro.data.synthetic.synthetic_cifar``: the same numpy
-draws, so a seed gives bitwise the same images and labels on both sides.
+Held against ``repro.data.synthetic`` (``synthetic_cifar``,
+``synthetic_lm``): the same numpy draws, so a seed gives bitwise the same
+images, labels and tokens on both sides.
 
 ``synthetic_cifar`` produces CIFAR-10-shaped data (32x32x3, 10 classes)
 with class-conditional structure (a fixed random template per class +
@@ -41,3 +42,17 @@ def synthetic_cifar(num: int, *, num_classes: int = 10, image_size: int = 32,
     out += rng.normal(0.0, noise, out.shape).astype(np.float32)
     out /= np.max(np.abs(out))
     return out, labels
+
+
+def synthetic_lm(num_seqs: int, seq_len: int, vocab: int, *,
+                 seed: int = 0, period: int = 16,
+                 noise: float = 0.1) -> np.ndarray:
+    """Token sequences (num_seqs, seq_len) int32: a random periodic
+    pattern per sequence with a ``noise`` share of tokens redrawn."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, vocab, size=(num_seqs, period))
+    reps = int(np.ceil(seq_len / period))
+    toks = np.tile(base, (1, reps))[:, :seq_len]
+    flip = rng.random((num_seqs, seq_len)) < noise
+    toks = np.where(flip, rng.integers(0, vocab, size=toks.shape), toks)
+    return toks.astype(np.int32)

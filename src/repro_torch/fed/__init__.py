@@ -1,4 +1,5 @@
 """The federated round engine, held against ``repro.fed``: ``FedRunner``,
+the scanned engine (``ScanRunner``, ``make_scanned_step``, sweep lanes),
 the population layer's cohort samplers, LTFL and the paper's four
 baseline schemes."""
 
@@ -11,6 +12,13 @@ from repro_torch.fed.population import (
     gumbel_topk_inclusion,
 )
 from repro_torch.fed.rounds import FedRunner, RoundRecord, resolve_device
+from repro_torch.fed.scan_engine import (
+    LaneSpec,
+    RoundLog,
+    ScanRunner,
+    SweepSpec,
+    make_scanned_step,
+)
 from repro_torch.fed.schemes import (
     BaseScheme,
     Controls,
@@ -32,6 +40,11 @@ ALL_SCHEMES = {
 __all__ = [
     "FedRunner",
     "RoundRecord",
+    "ScanRunner",
+    "RoundLog",
+    "LaneSpec",
+    "SweepSpec",
+    "make_scanned_step",
     "resolve_device",
     "Population",
     "CohortSampler",

@@ -23,7 +23,9 @@ equal.
   headroom, with the exact inclusion probabilities of
   ``gumbel_topk_inclusion``.
 
-The device-resident registry, its samplers' device twins and
+Each sampler's ``device_twin(runner)`` returns its in-segment scheduler
+(``repro_torch.control.device_samplers``) for ``ScanRunner(rng=
+"device")``. The sharded device registry (``sharded_twin``) and
 ``ChurnSpec`` are not ported yet.
 """
 from __future__ import annotations
@@ -35,6 +37,12 @@ from typing import Any, Optional, Tuple
 import numpy as np
 
 from repro_torch.configs.base import LTFLConfig, WirelessConfig
+from repro_torch.control.device_samplers import (
+    DeviceSamplerTwin,
+    channel_aware_twin,
+    energy_aware_twin,
+    uniform_twin,
+)
 from repro_torch.core.channel import ChannelState, expected_rate
 from repro_torch.core.delay_energy import local_train_energy
 
@@ -104,6 +112,11 @@ class CohortSampler:
                rng: np.random.Generator, ltfl: LTFLConfig) -> SelectResult:
         raise NotImplementedError
 
+    def device_twin(self, runner) -> Optional[DeviceSamplerTwin]:
+        """The in-segment scheduler for ``ScanRunner(rng="device")``, or
+        None for a host-only scheduler (the engine then raises)."""
+        return None
+
 
 @dataclass
 class UniformSampler(CohortSampler):
@@ -115,6 +128,9 @@ class UniformSampler(CohortSampler):
             return np.arange(n, dtype=np.int64), np.ones(n)
         idx = np.sort(rng.choice(n, size=cohort_size, replace=False))
         return idx.astype(np.int64), np.full(cohort_size, cohort_size / n)
+
+    def device_twin(self, runner) -> DeviceSamplerTwin:
+        return uniform_twin(runner.population_size, runner.cohort_size)
 
 
 @dataclass
@@ -148,6 +164,11 @@ class ChannelAwareSampler(CohortSampler):
             idx = np.concatenate(
                 [idx, rng.choice(rest, size=n_explore, replace=False)])
         return np.sort(idx).astype(np.int64), None
+
+    def device_twin(self, runner) -> DeviceSamplerTwin:
+        return channel_aware_twin(runner.population_size,
+                                  runner.cohort_size, runner.ltfl,
+                                  power=self.power, explore=self.explore)
 
 
 def gumbel_topk_inclusion(w, k: int, n_quad: int = 64) -> np.ndarray:
@@ -251,3 +272,10 @@ class EnergyAwareSampler(CohortSampler):
         pi_all = self._inclusion(population, ltfl, cohort_size)
         pi = np.clip(pi_all[idx], 1e-9, 1.0)
         return idx.astype(np.int64), pi
+
+    def device_twin(self, runner) -> DeviceSamplerTwin:
+        # the twin recomputes the headroom weights on the device from the
+        # population view, so it is right for every sweep lane's own
+        # population
+        return energy_aware_twin(runner.ltfl, runner.cohort_size,
+                                 min_headroom=self.min_headroom)

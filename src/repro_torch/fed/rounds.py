@@ -216,6 +216,19 @@ class FedRunner:
         self._cum_energy = 0.0
 
     # ------------------------------------------------------------------ #
+    def _scan_shape_signature(self) -> tuple:
+        """Every runner-level value a scanned segment bakes in: shapes
+        (cohort width, population, batch, parameter count), the eval
+        cadence, the participation rule, block fading and Algorithm 1's
+        loop bounds. ``ScanRunner.run_sweep`` runs lanes together only
+        when these match; the config floats not listed here are laned
+        (``scan_engine._LANED_WIRELESS`` / ``_LANED_LTFL``). The device
+        is part of it: a bucket's lanes share one batch."""
+        return (self.num_devices, self.population_size, self.batch_size,
+                self.num_params, self.eval_every, self.participation,
+                self.block_fading, str(self.device),
+                int(self.ltfl.bo_iters), int(self.ltfl.alt_max_iters))
+
     @property
     def channel_epoch(self) -> int:
         """Bumped whenever the channel realization changes (block fading)."""

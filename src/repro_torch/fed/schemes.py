@@ -11,9 +11,12 @@ level delta and transmission power — a ``Compressor`` for the round step,
 and the analytic uplink payload in bits per device, which the host
 delay/energy accounting charges.
 
-The scanned and async engines' hooks (``scan_control_program``,
-``scan_lane_signature``, ``configure_async``) are not ported yet: the
-port has only the per-round ``FedRunner`` loop.
+The scanned engine's hooks (``repro_torch.fed.scan_engine``):
+``scan_supported``, ``scan_recontrol_every`` (the host-recontrol cadence
+that ends a scanned segment) and ``scan_lane_signature`` (what a scheme
+bakes into a segment, which ``run_sweep`` buckets lanes by). The
+in-segment control programs (``scan_control_program``) and the async
+engine's ``configure_async`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -48,9 +51,26 @@ class Controls:
 class BaseScheme:
     name = "base"
     uses_prune = False    # the runner builds the prune stage only when True
+    # the scanned engine runs whole segments of rounds under constant
+    # controls; a scheme that cannot declare its recontrol cadence
+    # (scan_recontrol_every) sets this False and stays on FedRunner
+    scan_supported = True
 
     def setup(self, runner) -> None:
         self.runner = runner
+
+    def scan_recontrol_every(self, runner) -> int:
+        """Host-recontrol cadence for the scanned engine: every k rounds
+        the host recomputes ``controls`` (a segment boundary); 0 means
+        the controls are constant for the whole run."""
+        return 0
+
+    def scan_lane_signature(self, runner) -> tuple:
+        """Hashable identity of everything this scheme bakes into a
+        scanned segment (compressor constants, switches, arm grids,
+        cadences): ``run_sweep`` runs lanes together only when their
+        signatures match. Stateless schemes close over shapes only."""
+        return (type(self).__name__,)
 
     def compressor(self, *, uniforms: Optional[UniformSource] = None
                    ) -> Compressor:
@@ -106,6 +126,19 @@ class LTFLScheme(BaseScheme):
         if not self.use_quant:
             return identity_compressor()
         return ltfl_quantizer(uniforms=uniforms)
+
+    def scan_recontrol_every(self, runner) -> int:
+        # a decision is per cohort: a cohort drawn anew every round
+        # re-solves every round (FedRunner's cohort_epoch rule)
+        if runner.cohort_size < runner.population_size:
+            return 1
+        return self.recontrol_every or 0
+
+    def scan_lane_signature(self, runner) -> tuple:
+        # the switches gate which solve runs; the cadence shapes the
+        # segment plan; the channel regime is laned, not baked
+        return (type(self).__name__, self.scan_recontrol_every(runner),
+                self.uses_prune, self.use_quant, self.use_power)
 
     def _solve(self):
         r = self.runner
@@ -178,6 +211,9 @@ class SignSGDScheme(BaseScheme):
     def __init__(self, lr_scale: float = 0.02):
         self.lr_scale = lr_scale   # signSGD needs a much smaller step
 
+    def scan_lane_signature(self, runner) -> tuple:
+        return (type(self).__name__, self.lr_scale)   # baked into the step
+
     def compressor(self, *, uniforms: Optional[UniformSource] = None
                    ) -> Compressor:
         return sign_compressor(self.lr_scale)
@@ -231,6 +267,13 @@ class FedMPScheme(BaseScheme):
     def payload_bits(self, ctl):
         return self._full_bits(ctl.rho)
 
+    def scan_recontrol_every(self, runner) -> int:
+        return 1          # the bandit re-decides (and learns) every round
+
+    def scan_lane_signature(self, runner) -> tuple:
+        return (type(self).__name__, tuple(float(a) for a in self.arms),
+                float(self.ucb_c))
+
     def post_round(self, rnd, metrics):
         loss = metrics["train_loss"]
         if self._prev_loss is not None:
@@ -260,6 +303,9 @@ class STCScheme(BaseScheme):
 
     def __init__(self, sparsity: float = 0.01):
         self.sparsity = sparsity
+
+    def scan_lane_signature(self, runner) -> tuple:
+        return (type(self).__name__, self.sparsity)   # baked into the step
 
     def compressor(self, *, uniforms: Optional[UniformSource] = None
                    ) -> Compressor:

@@ -75,9 +75,10 @@ def _ranks(a: torch.Tensor) -> torch.Tensor:
 def _prune_counts(rho: torch.Tensor, n: int) -> torch.Tensor:
     """k = floor(clip(rho, 0, 1) * n) in float32, as int64."""
     rho = torch.as_tensor(rho, dtype=torch.float32)
+    # n as a float32 tensor made on rho's device (no host copy)
     k = torch.floor(torch.clamp(rho, 0.0, 1.0)
-                    * torch.tensor(float(n), dtype=torch.float32,
-                                   device=rho.device))
+                    * torch.full((), float(n), dtype=torch.float32,
+                                 device=rho.device))
     return k.to(torch.int64)
 
 

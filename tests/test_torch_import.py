@@ -1,9 +1,11 @@
 """The port needs no jax and nothing of the reference package.
 
 A subprocess blocks jax (``sys.modules["jax"] = None``) and imports every
-module of ``repro_torch``; and no source file of the port, nor
-``chip_smoke.py``, has an import statement of ``jax`` or ``repro``
-(docstrings that name a reference module are fine).
+module of ``repro_torch`` (the scanned engine, the device samplers and
+the checkpoints among them); no source file of the port, no
+``examples/torch_*.py`` script, nor ``chip_smoke.py``, has an import
+statement of ``jax`` or ``repro`` (docstrings that name a reference
+module are fine); and the port's sweep example runs with both blocked.
 """
 import os
 import re
@@ -27,6 +29,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert "jax" not in {k for k, v in sys.modules.items() if v is not None}
+for name in ("repro_torch.fed.scan_engine", "repro_torch.checkpoint",
+             "repro_torch.control.device_samplers"):
+    assert name in names, name
 print(len(names))
 """
 
@@ -41,11 +46,31 @@ def test_port_imports_without_jax():
 
 
 def test_no_jax_or_reference_import_statements():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "examples").glob("torch_*.py")))
+    assert len(list((ROOT / "examples").glob("torch_*.py"))) == 3
     assert len(files) > 20
     for f in files:
         hits = IMPORT_RE.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
+
+
+def test_sweep_example_runs_without_jax_on_the_cpu():
+    probe = ("import runpy, sys; sys.modules['jax'] = None; "
+             "sys.modules['repro'] = None; sys.argv = sys.argv[1:]; "
+             "runpy.run_path(sys.argv[0], run_name='__main__')")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    env["OMP_NUM_THREADS"] = "1"
+    out = subprocess.run(
+        [sys.executable, "-c", probe,
+         str(ROOT / "examples" / "torch_paper_table_sweep.py"),
+         "--device", "cpu", "--rounds", "2"], env=env, capture_output=True,
+        text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "12 lanes ran in 3 buckets" in out.stdout
+    assert len([l for l in out.stdout.splitlines()
+                if l.startswith(("ltfl/", "fedsgd/", "stc/"))]) == 6
 
 
 def _launcher(*args):
