@@ -144,8 +144,9 @@ Phases; any failure exits non-zero before the result lines:
    fixed 1e-2: 1.19e-2). Phases 19-20 must leave every
    ``LAUNCHES`` count as it was.
 
-21. the scanned engine at small size: ``control="device"`` and
-   ``population_sharding`` raise ValueErrors naming ROADMAP A5 and A7;
+21. the scanned engine at small size: ``control="device"`` with
+   ``rng="host"`` and ``population_sharding`` raise ValueErrors (the
+   latter naming ROADMAP A7);
    ``ScanRunner(rng="host")`` with the MLP (hidden 16) and U = 4, LTFL,
    6 rounds in segments of 3, on the card against the CPU with the same
    injected uniforms (cohorts,
@@ -189,16 +190,47 @@ Phases; any failure exits non-zero before the result lines:
    against its lanes alone in the MLP regime too (U = 16, batch 4, 64
    rounds, 4 seed lanes, FedSGD and LTFL).
 
+24. the device control plane at phase 22's width:
+   ``LTFLScheme(recontrol_every=1)`` with ``rng="device"``,
+   ``control="device"``, block fading and ``eval_every=5``, 10 rounds
+   as one segment under the sync check: every loss and gamma finite, 32
+   quantizer launches a round counted from 0, one solve a round, the
+   control means in bounds, the power moving between rounds, the eval
+   head's accuracy on rounds 0 and 5 only; then its steady time a round
+   against host control (``rng="host"``, one-round segments with the
+   numpy solve between them), both with eval every 5. FedSGD under host
+   and device control (``rng="device"``, 4 rounds, eval every 2, under
+   deterministic cuDNN): losses bitwise equal, the eval head within abs
+   1e-6 of ``evaluate()``. ``solve_dev`` on the card against the host
+   ``controller.solve`` with the host's draws injected: at
+   tests/test_device_control.py's sizes (U = 6, ``bo_iters`` 3,
+   ``alt_max_iters`` 2, seeds 0-2) its tolerances are the gate (rho atol
+   1e-5, delta equal, power rtol 1e-4, per atol 1e-6, gamma rel 1e-4);
+   at U = 30 and ``LTFLConfig()`` the power and gamma gaps, both
+   decisions' feasibility and both alternation counts are reported; one
+   solve there from a generator is timed by CUDA events and its device
+   events counted by torch.profiler. A device-control sweep at MLP
+   width (U = 16, ``bo_iters`` 8, ``alt_max_iters`` 3): Table 2 and a
+   0.05 W cap in one bucket under deterministic cuDNN, each lane bitwise
+   its solo run (losses, gamma, weights, host fields; delay and energy
+   within ``SWEEP_ACCOUNTING_REL``), the capped lane's power at or under
+   0.05 W. Last, host against device control in the regime of
+   benchmarks/device_control.py (MLP, batch 4, ``bo_iters`` 8,
+   ``alt_max_iters`` 3, block fading; U = 8, 16, 32), s a round.
+
 ``--profile DIR`` also writes torch.profiler tables of one edge round
 (``DIR/profile_round.txt``), one datacenter step
 (``DIR/profile_step.txt``; phase 18's ``profile_step_<arch>.txt``), one
 decode step of each serving run
-(``DIR/profile_decode_<arch>_<B>x<P>.txt``) and one scanned segment of
-phase 22 (``DIR/profile_segment.txt``), with their idle shares.
+(``DIR/profile_decode_<arch>_<B>x<P>.txt``), one scanned segment of
+phase 22 (``DIR/profile_segment.txt``) and a 2-round device-control
+segment of phase 24 (``DIR/profile_control_segment.txt``), with their
+idle shares.
 
 The last three lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. The ``stochastic_quant``
-row also carries the scanned engine's launches a round by rng mode, the
+row also carries the scanned engine's launches a round by rng mode and
+under device control (``control_launches_per_round``), the
 sweep bucket's launches a round for its lanes and its check against the
 plain version at the bucket's rows (``max_abs_err`` is the larger of
 phase 3's and that check's float32 error). The
@@ -1871,9 +1903,10 @@ def phase_scan_small() -> None:
         return [torch.rand((nc,) + tuple(s), generator=g) for s in shapes]
 
     kw = dict(batch_size=8, seed=0, eval_every=0)
-    # the slices not ported yet refuse on the card too, naming their
-    # ROADMAP items
-    for bad, item in ((dict(control="device", rng="device"), "A5"),
+    # device control without the device rng stream refuses, as the
+    # reference's does; the sharded registry is not ported yet and
+    # refuses naming its ROADMAP item
+    for bad, item in ((dict(control="device", rng="host"), "rng='device'"),
                       (dict(population_sharding=2, rng="device"), "A7")):
         try:
             ScanRunner(model, params, ltfl, train, test,
@@ -1884,8 +1917,8 @@ def phase_scan_small() -> None:
                      f"{err}")
         else:
             fail(f"ScanRunner({bad}) did not raise")
-    log("[scan] control='device' and population_sharding raise "
-        "ValueErrors naming A5 and A7 on the card")
+    log("[scan] control='device' with rng='host' and population_sharding "
+        "raise ValueErrors on the card (the latter naming A7)")
     hists = {}
     for dev in ("cpu", "cuda"):
         runner = ScanRunner(model, params, ltfl, train, test,
@@ -2398,6 +2431,396 @@ def _mlp_sweep_timing():
     return out
 
 
+# --------------------------------------------------------------------------- #
+# Device control (phase 24)
+# --------------------------------------------------------------------------- #
+CONTROL_ROUNDS = 10                     # one segment of per-round solves
+CONTROL_EVAL_EVERY = 5
+CONTROL_FEDSGD_ROUNDS = 4               # host vs device control, eval 2
+CONTROL_MLP_CLIENTS = (8, 16, 32)       # benchmarks/device_control.py
+CONTROL_MLP_ROUNDS = 8
+# the reference test's sizes (tests/test_device_control.py), the gate
+PIN_LTFL = dict(num_devices=6, samples_min=40, samples_max=60, bo_iters=3,
+                alt_max_iters=2)
+PIN_PARAMS = 3000
+
+
+def host_bo_draws(seed: int, alternations: int, iters: int, d: int,
+                  init_points: int = 4, n_candidates: int = 512):
+    """The host optimizer's numpy draw order, stacked per alternation
+    (init uniforms; per iteration the candidate uniforms, then the
+    0.1-scaled local normals), as float32 ``BODraws`` on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.control import BODraws
+    rng = np.random.default_rng(seed)
+    ui = np.empty((alternations, init_points, d))
+    uc = np.empty((alternations, iters, n_candidates, d))
+    ep = np.empty((alternations, iters, n_candidates // 4, d))
+    for a in range(alternations):
+        ui[a] = rng.uniform(size=(init_points, d))
+        for m in range(iters):
+            uc[a, m] = rng.uniform(size=(n_candidates, d))
+            ep[a, m] = rng.normal(0.0, 0.1, size=(n_candidates // 4, d))
+    return BODraws(*(torch.as_tensor(x, dtype=torch.float32, device="cuda")
+                     for x in (ui, uc, ep)))
+
+
+def device_events(fn) -> int:
+    """How many device-side events (kernels, copies, fills) one call of
+    ``fn`` makes, counted by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_control(profile_dir):
+    """Phase 24: the device control plane at the paper's width (the
+    main path, FedSGD under both control modes, solve_dev against the
+    host solve, a device-control sweep bucket at MLP width) and its
+    times against host control."""
+    import torch
+    from repro_torch.configs import LTFLConfig, ResNetConfig
+    from repro_torch.fed import FedSGDScheme, LTFLScheme, ScanRunner
+    from repro_torch.kernels.stochastic_quant import LAUNCHES
+    from repro_torch.models import ResNet
+
+    train, test = edge_world(20000, 2000)
+    model = ResNet(ResNetConfig())
+    n_leaves = len(model.param_specs())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen)
+    base = LTFLConfig()
+    w = base.wireless
+    out = {}
+
+    def make(scheme, **kw):
+        kw = {"batch_size": 50, "seed": 0, "device": "cuda", **kw}
+        return ScanRunner(model, params, base, train, test, scheme, **kw)
+
+    # the main path: per-round Algorithm 1, one segment, eval head
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    scheme = LTFLScheme(recontrol_every=1)
+    runner = make(scheme, rng="device", control="device", block_fading=True,
+                  eval_every=CONTROL_EVAL_EVERY)
+    spans = runner._segment_spans(0, CONTROL_ROUNDS)
+    if spans != [(0, CONTROL_ROUNDS)]:
+        fail(f"device control: segments {spans}, want one")
+    LAUNCHES["stochastic_quant"] = 0
+    first = _timed(lambda: _sync_free_run(runner, CONTROL_ROUNDS,
+                                          "device control"))
+    launched = LAUNCHES["stochastic_quant"]
+    hist = list(runner.history)
+    if launched != CONTROL_ROUNDS * n_leaves:
+        fail(f"device control: {launched} quantizer launches in "
+             f"{CONTROL_ROUNDS} rounds, want {n_leaves} a round")
+    if scheme._n_decide_solves != CONTROL_ROUNDS:
+        fail(f"device control: {scheme._n_decide_solves} solves in "
+             f"{CONTROL_ROUNDS} rounds")
+    for r in hist:
+        if not (math.isfinite(r.train_loss) and math.isfinite(r.gamma)):
+            fail(f"device control: round {r.round} loss {r.train_loss} "
+                 f"gamma {r.gamma}")
+        if not (0.0 <= r.rho_mean <= base.rho_max
+                and 1.0 <= r.delta_mean <= base.delta_max
+                and w.p_min <= r.power_mean <= w.p_max):
+            fail(f"device control: round {r.round} means out of bounds: "
+                 f"{r.rho_mean}, {r.delta_mean}, {r.power_mean}")
+        due = r.round % CONTROL_EVAL_EVERY == 0
+        if due != math.isfinite(r.test_acc):
+            fail(f"device control: round {r.round} test_acc {r.test_acc}")
+    powers = [r.power_mean for r in hist]
+    if len(set(powers)) < 2:
+        fail(f"device control: power did not move: {powers}")
+    steady = _timed(lambda: runner.run(CONTROL_ROUNDS))
+    peak = torch.cuda.max_memory_allocated()
+    out.update({
+        "launches_per_round": launched // CONTROL_ROUNDS,
+        "solves_per_round": 1,
+        "segment_s_first": first, "round_s": steady / CONTROL_ROUNDS,
+        "max_memory_allocated": peak,
+        "losses": [r.train_loss for r in hist],
+        "power_mean": powers, "rho_mean": [r.rho_mean for r in hist],
+        "delta_mean": [r.delta_mean for r in hist],
+        "test_acc": [r.test_acc for r in hist]})
+    log(f"[control] paper width, LTFLScheme(recontrol_every=1), "
+        f"rng/control='device', block fading, eval every "
+        f"{CONTROL_EVAL_EVERY}: {CONTROL_ROUNDS} rounds in one segment, no "
+        f"host sync inside, quantizer launches {launched} "
+        f"({launched // CONTROL_ROUNDS} a round), {CONTROL_ROUNDS} solves, "
+        f"losses {out['losses']}, power_mean {powers}, test_acc "
+        f"{out['test_acc']}, segment_s first {first!r} steady {steady!r}, "
+        f"max_memory_allocated={peak} bytes")
+    if profile_dir is not None:
+        profile_call(lambda: runner.run(2),
+                     profile_dir / "profile_control_segment.txt",
+                     "device-control segment (2 rounds)")
+    del runner
+
+    # host control: the numpy solve between one-round segments
+    host = make(LTFLScheme(recontrol_every=1), rng="host",
+                block_fading=True, eval_every=CONTROL_EVAL_EVERY)
+    host.run(CONTROL_ROUNDS)
+    out["host_control_round_s"] = _timed(
+        lambda: host.run(CONTROL_ROUNDS)) / CONTROL_ROUNDS
+    del host
+    torch.cuda.empty_cache()
+    out["device_vs_host_control"] = (out["host_control_round_s"]
+                                     / out["round_s"])
+    log(f"[control] paper width, steady s a round: device control "
+        f"{out['round_s']!r}, host control (rng='host', one-round "
+        f"segments) {out['host_control_round_s']!r}")
+
+    # FedSGD (no program): the same stream under both control modes
+    with deterministic_cudnn():
+        fed = {}
+        for ctl in ("host", "device"):
+            r = make(FedSGDScheme(), rng="device", control=ctl,
+                     eval_every=2)
+            fed[ctl] = list(r.run(CONTROL_FEDSGD_ROUNDS))
+            del r
+    acc_gap = 0.0
+    for a, b in zip(fed["host"], fed["device"]):
+        if a.train_loss != b.train_loss or a.received != b.received:
+            fail(f"FedSGD host vs device control: round {a.round} loss "
+                 f"{a.train_loss!r} vs {b.train_loss!r}")
+        if math.isnan(a.test_acc) != math.isnan(b.test_acc):
+            fail(f"FedSGD host vs device control: round {a.round} acc "
+                 f"{a.test_acc} vs {b.test_acc}")
+        if not math.isnan(a.test_acc):
+            acc_gap = max(acc_gap, abs(a.test_acc - b.test_acc))
+    if acc_gap > 1e-6:
+        fail(f"FedSGD eval head vs evaluate(): {acc_gap}")
+    out["fedsgd_eval_head_max_abs_err"] = acc_gap
+    log(f"[control] FedSGD at paper width, {CONTROL_FEDSGD_ROUNDS} rounds, "
+        f"rng='device': control 'host' and 'device' losses bitwise equal, "
+        f"eval head vs evaluate() max abs {acc_gap!r}")
+
+    out["solve"] = _solve_checks(model)
+    out["sweep"] = _control_sweep()
+    out["mlp"] = _control_mlp_timing()
+    log(f"[control] {json.dumps(out)}")
+    return out
+
+
+def _solve_checks(model):
+    """solve_dev on the card against the host controller.solve with the
+    host's draws injected: the reference test's sizes and tolerances
+    (the gate), then the paper's U = 30 and Table-2 budget (reported);
+    then the solve's time and device events at that size."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import LTFLConfig
+    from repro_torch.control import solve_dev
+    from repro_torch.core import controller
+    from repro_torch.core.channel import ChannelState
+
+    pin = LTFLConfig(**PIN_LTFL)
+    for seed in (0, 1, 2):
+        state = ChannelState.sample(pin.wireless, 6, 40, 60,
+                                    np.random.default_rng(seed))
+        rsq = np.full(6, 1e-2 * PIN_PARAMS)
+        host = controller.solve(pin, state, PIN_PARAMS, range_sq_sums=rsq,
+                                rng=np.random.default_rng(seed + 100))
+        dev = solve_dev(pin, state.to_arrays("cuda"), PIN_PARAMS,
+                        torch.as_tensor(rsq, dtype=torch.float32,
+                                        device="cuda"),
+                        draws=host_bo_draws(seed + 100, pin.alt_max_iters,
+                                            pin.bo_iters, 6))
+        d = {k: v.cpu().numpy().astype(np.float64)
+             for k, v in dev._asdict().items()}
+        gaps = {"rho": float(np.max(np.abs(d["rho"] - host.rho))),
+                "power_rel": float(np.max(np.abs(d["power"] / host.power
+                                                 - 1.0))),
+                "per": float(np.max(np.abs(d["per"] - host.per))),
+                "gamma_rel": abs(float(d["gamma"]) / host.gamma - 1.0)}
+        if not (gaps["rho"] <= 1e-5 and gaps["power_rel"] <= 1e-4
+                and gaps["per"] <= 1e-6 and gaps["gamma_rel"] <= 1e-4
+                and np.array_equal(d["delta"], host.delta)):
+            fail(f"solve_dev on the card vs controller.solve, seed {seed}: "
+                 f"{gaps}, delta {d['delta']} vs {host.delta}")
+    log("[control] solve_dev on the card against controller.solve at the "
+        "reference test's sizes (U=6, bo_iters 3, alt_max_iters 2, seeds "
+        "0-2): rho atol 1e-5, delta equal, power rtol 1e-4, per atol "
+        "1e-6, gamma rel 1e-4 hold")
+
+    full = LTFLConfig()
+    v = sum(int(np.prod(s.shape)) for s in model.param_specs().values())
+    u = full.num_devices
+    state = ChannelState.sample(full.wireless, u, full.samples_min,
+                                full.samples_max, np.random.default_rng(0))
+    t = time.time()
+    host = controller.solve(full, state, v, rng=np.random.default_rng(100))
+    host_s = time.time() - t
+    draws = host_bo_draws(100, full.alt_max_iters, full.bo_iters, u)
+    ch = state.to_arrays("cuda")
+    dev = solve_dev(full, ch, v, draws=draws)
+    d = {k: v_.cpu().numpy().astype(np.float64)
+         for k, v_ in dev._asdict().items()}
+    rsq = np.full(u, 1e-2 * v)
+    feas = [bool(controller._evaluate(full, state, rsq, rho, delta, power,
+                                      v)[1])
+            for rho, delta, power in ((host.rho, host.delta, host.power),
+                                      (d["rho"], d["delta"], d["power"]))]
+    full_gaps = {
+        "power_max_rel": float(np.max(np.abs(d["power"] / host.power
+                                             - 1.0))),
+        "rho_max_abs": float(np.max(np.abs(d["rho"] - host.rho))),
+        "delta_equal_share": float(np.mean(d["delta"] == host.delta)),
+        "gamma_rel": abs(float(d["gamma"]) / host.gamma - 1.0),
+        "feasible_host": feas[0], "feasible_device": feas[1],
+        "alternations_host": host.alternations,
+        "alternations_device": int(d["alternations"]),
+        "host_solve_s": host_s}
+    log(f"[control] solve_dev on the card vs controller.solve at U={u}, "
+        f"LTFLConfig() (bo_iters {full.bo_iters}, alt_max_iters "
+        f"{full.alt_max_iters}), injected draws (reported, no gate): "
+        f"{json.dumps(full_gaps)}")
+
+    # the production path: draws from a generator on the card
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+
+    def solve():
+        return solve_dev(full, ch, v, generator=g)
+
+    solve_ms = cuda_ms(solve, 5)
+    torch.cuda.synchronize()
+    t = time.time()
+    solve()
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    events = device_events(solve)
+    timing = {"solve_ms": solve_ms, "solve_wall_s": wall,
+              "device_events": events}
+    log(f"[control] one solve_dev at U={u}, LTFLConfig(), generator draws: "
+        f"{solve_ms!r} ms by CUDA events (5 calls), {wall!r} s wall, "
+        f"{events} device events")
+    return {"pin": "held", "full": full_gaps, **timing}
+
+
+def _control_sweep():
+    """Two device-control lanes (Table 2 and a 0.05 W power cap) at MLP
+    width in one bucket under deterministic cuDNN: each lane bitwise its
+    solo run, the cap binding in its lane."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import LTFLConfig
+    from repro_torch.fed import LTFLScheme, ScanRunner, SweepSpec
+    from repro_torch.models import MLP, MLPConfig
+    rounds = 6
+    train, test = edge_world(2048, 256)
+    mlp = MLP(MLPConfig(hidden=(16,), downsample=4))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = mlp.init(gen)
+    base = LTFLConfig(num_devices=16, samples_min=40, samples_max=60,
+                      learning_rate=0.1, bo_iters=8, alt_max_iters=3)
+    capped = dataclasses.replace(base, wireless=dataclasses.replace(
+        base.wireless, p_max=0.05))
+
+    def scheme():
+        return LTFLScheme(recontrol_every=1)
+
+    def make(ltfl):
+        return ScanRunner(mlp, params, ltfl, train, test, scheme(),
+                          batch_size=4, seed=0, eval_every=0, rng="device",
+                          control="device", block_fading=True,
+                          device="cuda")
+
+    spec = SweepSpec.grid(schemes={"ltfl": scheme},
+                          ltfls={"table2": base, "cap005": capped},
+                          seeds=(0,))
+    with deterministic_cudnn():
+        parent = make(base)
+        parent.segment_sync_debug = "error"
+        try:
+            hists = parent.run_sweep(spec, rounds)
+        except RuntimeError as err:
+            fail(f"control sweep: a host sync inside a segment: {err}")
+        buckets = [b["lane_indices"] for b in parent._last_sweep_buckets]
+        if buckets != [[0, 1]]:
+            fail(f"control sweep: buckets {buckets}, want one of 2")
+        lanes = parent._last_sweep_buckets[0]["lanes"]
+        acct = 0.0
+        for lane_spec, hist, lane in zip(spec.lanes, hists, lanes):
+            solo = make(lane_spec.ltfl)
+            h_solo = list(solo.run(rounds))
+            where = f"control sweep lane {lane_spec.label}"
+            same_host_fields(hist, h_solo, where)
+            for x, y in zip(hist, h_solo):
+                if x.train_loss != y.train_loss or x.gamma != y.gamma:
+                    fail(f"{where}: round {x.round} loss {x.train_loss!r} "
+                         f"gamma {x.gamma!r} vs its solo run's "
+                         f"{y.train_loss!r} {y.gamma!r}")
+                for f in ("delay", "energy"):
+                    a, b = getattr(x, f), getattr(y, f)
+                    acct = max(acct, abs(a - b) / abs(b))
+                    if abs(a - b) > SWEEP_ACCOUNTING_REL * abs(b):
+                        fail(f"{where}: round {x.round} {f} {a!r} vs "
+                             f"{b!r}")
+            if not all(torch.equal(t, solo.params[k])
+                       for k, t in lane.params.items()):
+                fail(f"{where}: final weights differ from its solo run's")
+    cap = [r.power_mean for r in hists[1]]
+    if max(cap) > 0.05 + 1e-6:
+        fail(f"control sweep: the 0.05 W lane's power_mean {cap}")
+    out = {"lanes": 2, "rounds": rounds,
+           "accounting_max_rel_vs_solo": acct,
+           "power_mean": {"table2": [r.power_mean for r in hists[0]],
+                          "cap005": cap}}
+    log(f"[control] sweep at MLP width (U=16, bo_iters 8, alt_max_iters 3),"
+        f" 2 device-control lanes in one bucket under deterministic cuDNN: "
+        f"each lane bitwise its solo run (losses, gamma, weights, host "
+        f"fields), {json.dumps(out)}")
+    return out
+
+
+def _control_mlp_timing():
+    """benchmarks/device_control.py's regime (MLP, batch 4, bo_iters 8,
+    alt_max_iters 3, block fading, LTFLScheme(recontrol_every=1)): s a
+    round of host control (rng='host', one-round segments, the numpy
+    solve between them) and device control (one segment), min of 3 timed
+    runs after a warm-up run, per cohort width."""
+    import torch
+    from repro_torch.configs import LTFLConfig
+    from repro_torch.fed import LTFLScheme, ScanRunner
+    from repro_torch.models import MLP, MLPConfig
+    train, test = edge_world(2048, 256)
+    mlp = MLP(MLPConfig(hidden=(16,), downsample=4))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = mlp.init(gen)
+    rows = {}
+    for u in CONTROL_MLP_CLIENTS:
+        ltfl = LTFLConfig(num_devices=u, samples_min=40, samples_max=60,
+                          learning_rate=0.1, bo_iters=8, alt_max_iters=3)
+        row = {}
+        for name, kw in (("host", {"rng": "host"}),
+                         ("device", {"rng": "device",
+                                     "control": "device"})):
+            r = ScanRunner(mlp, params, ltfl, train, test,
+                           LTFLScheme(recontrol_every=1), batch_size=4,
+                           seed=0, eval_every=0, block_fading=True,
+                           device="cuda", **kw)
+            r.run(CONTROL_MLP_ROUNDS)
+            row[name] = min(_timed(lambda: r.run(CONTROL_MLP_ROUNDS))
+                            for _ in range(3)) / CONTROL_MLP_ROUNDS
+        row["speedup"] = row["host"] / row["device"]
+        rows[u] = row
+    log(f"[control] MLP regime of benchmarks/device_control.py, s a round "
+        f"(min of 3 x {CONTROL_MLP_ROUNDS} rounds): {json.dumps(rows)}")
+    return rows
+
+
 def serve_arch(name: str):
     from repro_torch.configs import get_arch
     return get_arch(name)
@@ -2482,6 +2905,8 @@ def main() -> None:
     phase_scan_small()
     scan = phase_scan_main(profile_dir)
     sweep = phase_sweep()
+    # the device control plane
+    control = phase_control(profile_dir)
     log(f"[done] {time.time() - t_start:.1f} s")
 
     def per_family(key):
@@ -2536,6 +2961,7 @@ def main() -> None:
         "eager_ms": t["round_kernel_eager_ms"],
         "plain_eager_ms": t["round_plain_eager_ms"],
         "scan_launches_per_round": scan["launches_per_round"],
+        "control_launches_per_round": control["launches_per_round"],
         "sweep_bucket_launches_per_round": sweep["launches_per_round"],
         "sweep_bucket_lanes": sweep["lanes"],
         "sweep_bucket_vs_plain": sweep["quant_vs_plain"],

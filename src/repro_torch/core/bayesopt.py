@@ -17,9 +17,9 @@ controller runs on the edge server, outside the jitted training path.
 
 Held against ``repro.core.bayesopt``: a numpy copy of the whole module,
 so a seeded ``minimize`` consumes the rng stream identically and returns
-bitwise the same result. The reference's traced twin
-(``repro.control.device_bayesopt``) shares the saturation-clamped
-argmin-z proposal rule below; it is not ported yet.
+bitwise the same result. The device twin
+(``repro_torch.control.device_bayesopt``) shares the saturation-clamped
+argmin-z proposal rule below.
 """
 from __future__ import annotations
 
@@ -77,7 +77,7 @@ def _norm_cdf(x: np.ndarray) -> np.ndarray:
 # FIRST one wins — a deliberate shared rule (it slightly changes f64
 # selection in the z range (-8.3, -6), where argmax over f64 PI used to
 # resolve sub-1e-9 differences) so the f32 twin in
-# repro.control.device_bayesopt ties exactly the same way.
+# repro_torch.control.device_bayesopt ties exactly the same way.
 _Z_SATURATION = -6.0
 
 
@@ -155,7 +155,7 @@ def minimize(objective: Callable[[np.ndarray], float],
         # shared rule, preserving the old behavior's exploration property
         # (raw argmin(z) would always chase sd -> 0 candidates glued to
         # the incumbent) while making the f32 twin
-        # (repro.control.device_bayesopt.minimize_dev) pick the same
+        # (repro_torch.control.device_bayesopt.minimize_dev) pick the same
         # candidate on injected draws instead of diverging wherever the
         # two precisions saturate differently.
         z = np.maximum((mu - y_star - xi) / sd, _Z_SATURATION)

@@ -36,11 +36,29 @@ Nothing inside a segment's loop reads a tensor's value on the host
 (``segment_sync_debug`` runs the loop under
 ``torch.cuda.set_sync_debug_mode`` to prove it).
 
-Segments split at host boundaries: a segment starts at every host
-recontrol round (``scheme.scan_recontrol_every``), ends after every eval
-round, and is at most ``max_segment`` rounds long, so ``max_segment=1``
-is the per-round loop. The inherited ``eval_every=1`` evaluates after
-every round and so makes every segment one round long; ``run`` warns.
+Segments split at host boundaries under ``control="host"``: a segment
+starts at every host recontrol round (``scheme.scan_recontrol_every``),
+ends after every eval round, and is at most ``max_segment`` rounds long,
+so ``max_segment=1`` is the per-round loop. The inherited
+``eval_every=1`` evaluates after every round and so makes every segment
+one round long; ``run`` warns.
+
+``control="device"`` (needs ``rng="device"``) removes both boundaries:
+the scheme's ``scan_control_program`` (``repro_torch.control``: LTFL's
+Algorithm 1 through ``solve_dev``, FedMP's bandit) decides inside the
+loop against each round's own fading and cohort, and an eval head
+scores the same fixed batches ``evaluate()`` does on the eval rounds,
+so ``LTFLScheme(recontrol_every=1)`` over R rounds is one segment. Per
+round and lane the generator draws the fading, the cohort and the batch
+indices, then the program's BO draws, then the packet outcomes at the
+decided power; a scheme with no program consumes the stream as under
+host control. A program runs once per lane with that lane's 0-d slice
+of the laned config, so a lane's solve has a solo run's shapes and is
+bitwise its solo run's. The (N,) gradient-range estimates stay on the
+device across rounds and segments (each round writes the cohort's
+measured values); the program reads the cohort's. A program with
+cadence ``every`` = k > 1 keeps segment boundaries at multiples of k,
+and only a segment's first round may decide (``_decide_first``).
 
 Sweep lanes
 -----------
@@ -59,9 +77,9 @@ one-lane bucket, so it runs the same arithmetic. ``torch.func.vmap``
 over the step is not an option: the quantizer is a ctypes call on a
 data pointer, which has no vmap rule.
 
-Not ported yet: ``control="device"`` (the in-segment Algorithm 1,
-ROADMAP A5), the async engine's hooks (A6) and ``population_sharding``
-(the sharded registry, A7); asking for either raises.
+Not ported yet: the async engine's hooks (ROADMAP A6) and
+``population_sharding`` (the sharded registry, A7; asking for it
+raises).
 """
 from __future__ import annotations
 
@@ -129,18 +147,27 @@ class RoundLog(NamedTuple):
     round), the mirror of ``RoundRecord``'s measured fields. Kept on the
     device during the segment; ``_absorb_segment`` gets it as numpy.
     Gamma is not reduced on the device: its per-device inputs
-    (``range_sq``, ``pers``, ``ns_u``, ``inclusion``) ride the log and the
-    host reduces them in float64."""
+    (``range_sq``, ``gap_delta``, ``rho_u``, ``pers``, ``ns_u``,
+    ``inclusion``) ride the log and the host reduces them in float64.
+    ``test_acc`` and the control means are logged under
+    ``control="device"`` only (the eval head, the per-round decisions);
+    under host control they are None and the host fills them."""
 
     train_loss: Any          # (R,)
     delay: Any               # (R,)  Eq. 34 incl. server delay
     energy: Any              # (R,)  Eq. 37 summed
     received: Any            # (R,)  sum alpha
     range_sq: Any            # (R, U) measured per-device range^2 sums
+    gap_delta: Any           # (R, U) applied delta (32 where delta == 0)
+    rho_u: Any               # (R, U) applied pruning ratios
     pers: Any                # (R, U) packet error rates at applied power
     ns_u: Any                # (R, U) cohort sample counts
     cohort: Any              # (R, U) scheduled population indices
     inclusion: Any = None    # (R, U) HT pi_i; None unless unbiased
+    test_acc: Any = None     # (R,) the eval head (NaN when not due)
+    rho_mean: Any = None     # (R,) means of the round's controls
+    delta_mean: Any = None   # (R,)
+    power_mean: Any = None   # (R,)
 
 
 def make_scanned_step(step_fn: Callable) -> Callable:
@@ -244,8 +271,10 @@ class ScanRunner(FedRunner):
 
     * ``rng``: ``"host"`` (the numpy stream replayed; default) or
       ``"device"`` (drawn on the device; see the module docstring);
-    * ``control``: ``"host"`` only (Algorithm 1 and eval run between
-      segments);
+    * ``control``: ``"host"`` (Algorithm 1 and eval run between
+      segments; default) or ``"device"`` (both inside the segment,
+      through the scheme's ``scan_control_program``; needs
+      ``rng="device"``);
     * ``max_segment``: optional cap on a segment's length.
 
     ``segment_sync_debug`` (None, ``"warn"`` or ``"error"``) runs each
@@ -260,13 +289,13 @@ class ScanRunner(FedRunner):
                  population_sharding=None, **kwargs):
         if rng not in ("host", "device"):
             raise ValueError(f"rng={rng!r} (want 'host' or 'device')")
-        if control == "device":
+        if control not in ("host", "device"):
             raise ValueError(
-                "control='device' (Algorithm 1 inside the segment, the "
-                "scheme's scan_control_program) is not ported yet "
-                "(ROADMAP A5); use control='host'")
-        if control != "host":
-            raise ValueError(f"control={control!r} (want 'host')")
+                f"control={control!r} (want 'host' or 'device')")
+        if control == "device" and rng != "device":
+            raise ValueError(
+                "control='device' decides inside the segment, which needs "
+                "the segment's own rng stream; pass rng='device'")
         if population_sharding is not None:
             raise ValueError(
                 "population_sharding (the device registry laid out over "
@@ -286,6 +315,18 @@ class ScanRunner(FedRunner):
         self.rng = rng
         self.control = control
         self.max_segment = max_segment
+        self._ctl_program = None
+        self._ctl_state = None
+        rc = scheme.scan_recontrol_every(self)
+        if control == "device" and rc:
+            self._ctl_program = scheme.scan_control_program(self)
+            if self._ctl_program is None:
+                raise ValueError(
+                    f"{type(scheme).__name__} recontrols every {rc} "
+                    "round(s) but provides no scan_control_program (no "
+                    "device twin of its control loop); use "
+                    "control='host'")
+            self._ctl_state = self._ctl_program.init
         self._sampler_twin = None
         self._generator: Optional[torch.Generator] = None
         if rng == "device":
@@ -303,11 +344,12 @@ class ScanRunner(FedRunner):
                     "participation='unbiased' needs inclusion "
                     f"probabilities; the {type(self.sampler).__name__} "
                     "device twin does not provide them")
-            if scheme.scan_recontrol_every(self) and \
+            if control == "host" and rc and \
                     self.cohort_size < self.population_size:
                 raise ValueError(
                     "rng='device' cannot host-recontrol against a cohort "
-                    "drawn on the device; use rng='host' (per-round "
+                    "drawn on the device; use control='device' (recontrol "
+                    "inside the segment) or rng='host' (per-round "
                     "segments)")
             self._generator = torch.Generator(device=self.device)
             self._generator.manual_seed(int(kwargs.get("seed", 0)))
@@ -319,6 +361,8 @@ class ScanRunner(FedRunner):
         self._parts_padded: Optional[torch.Tensor] = None
         self._part_sizes: Optional[torch.Tensor] = None
         self._pop_dev: Optional[ChannelArrays] = None
+        self._range_sq_dev: Optional[torch.Tensor] = None
+        self._eval_dev: Optional[List[Tree]] = None
         self._host_pop_stale = False
         # set by run_sweep: one {"signature", "lane_indices"} per bucket
         self._last_sweep_buckets: List[Dict[str, Any]] = []
@@ -327,16 +371,23 @@ class ScanRunner(FedRunner):
     # device-resident world
     # ------------------------------------------------------------------ #
     def _ensure_device_world(self) -> None:
-        """Upload the training pool (both modes) and, for device rng,
-        the (N, W) padded index table, the shard sizes and the (N,)
-        channel state, once."""
+        """Upload the training pool (both modes); under device control
+        the eval head's fixed batches (those ``evaluate`` scores); for
+        device rng the (N, W) padded index table, the shard sizes, the
+        (N,) channel state and the (N,) gradient-range estimates, once."""
         if self._data_dev is None:
             self._data_dev = self._to_device(self.batcher.base.arrays)
         # the quadrature's constants, on the device the segment uses
         gl_nodes(next(iter(self._data_dev.values())).device)
+        if self.control == "device" and self.eval_every and \
+                self._eval_dev is None:
+            self._eval_dev = [self._to_device(b)
+                              for b in self._eval_batches()]
         if self.rng != "device" or self._parts_padded is not None:
             return
         self._pop_dev = self.population.channel.to_arrays(self.device)
+        self._range_sq_dev = torch.from_numpy(
+            self._range_sq_pop.astype(np.float32)).to(self.device)
         table = self.batcher.padded_parts(dtype=np.int64)
         if table.shape[1] == 0:                  # every shard empty
             table = np.zeros((table.shape[0], 1), np.int64)
@@ -352,9 +403,17 @@ class ScanRunner(FedRunner):
     def _segment_spans(self, start: int, end: int):
         """Split [start, end) at host boundaries: a new segment starts at
         every recontrol round, ends after every eval round, and never
-        exceeds ``max_segment`` rounds."""
-        rc = self.scheme.scan_recontrol_every(self)
-        ev = self.eval_every
+        exceeds ``max_segment`` rounds. Under ``control="device"`` both
+        run inside the segment, so only a program's cadence ``every`` >
+        1 keeps boundaries (at its multiples, so that at most a
+        segment's first round decides)."""
+        if self.control == "device":
+            p = self._ctl_program
+            rc = p.every if p is not None and p.every > 1 else 0
+            ev = 0
+        else:
+            rc = self.scheme.scan_recontrol_every(self)
+            ev = self.eval_every
         spans = []
         a = start
         while a < end:
@@ -370,6 +429,17 @@ class ScanRunner(FedRunner):
             spans.append((a, b))
             a = b
         return spans
+
+    def _decide_first(self, a: int) -> bool:
+        """Whether the segment starting at round ``a`` opens with a
+        decide round: every segment for a cadence-1 program, an
+        on-cadence start for a cadence-k one (``_segment_spans`` keeps
+        every later round of the segment off-cadence)."""
+        if self._ctl_program is None:
+            return False
+        if self._ctl_program.every <= 1:
+            return True
+        return a % self._ctl_program.every == 0
 
     # ------------------------------------------------------------------ #
     # per-segment host preparation
@@ -436,11 +506,16 @@ class ScanRunner(FedRunner):
         return xs, self._segment_consts(ctl0, agg_denom), ctl0, seeds
 
     def _prepare_device_segment(self, a: int):
-        """The segment-start controls; every per-round draw happens on
-        the device. Unbiased aggregation divides by this runner's own
+        """The segment-start controls (none when a control program
+        decides inside the segment); every per-round draw happens on the
+        device. Unbiased aggregation divides by this runner's own
         population sample total."""
         agg_denom = (self._pop_samples_total
                      if self.participation == "unbiased" else None)
+        if self._ctl_program is not None:
+            consts = ({} if agg_denom is None
+                      else {"agg_denom": np.float32(agg_denom)})
+            return consts, None
         ctl = self.scheme.controls(a)
         return self._segment_consts(ctl, agg_denom), ctl
 
@@ -450,68 +525,97 @@ class ScanRunner(FedRunner):
     def _absorb_segment(self, a: int, b: int, ctl, log: RoundLog) -> None:
         """Fold one lane's segment (``log`` as numpy) into the host
         state and append its ``RoundRecord``s (cumulative sums and gamma
-        in float64). Eval runs here, at the segment's last round when
-        due: the planner ends segments at eval rounds."""
+        in float64). Under host control eval runs here, at the segment's
+        last round when due (the planner ends segments at eval rounds);
+        under device control the eval head measured it in the segment
+        and the accuracy and the control means come from the log (``ctl``
+        is then None when a program decided)."""
         cohorts = np.asarray(log.cohort, np.int64)
         rsqs = np.asarray(log.range_sq, np.float64)
-        for i in range(b - a):
-            self._range_sq_pop[cohorts[i]] = rsqs[i]
         if self.rng == "device":
+            # the (N,) state stays on the device; the host population and
+            # range estimates sync lazily (end of run, host recontrol)
             self._host_pop_stale = True
             if self.block_fading:
                 # the segment advanced b - a fading epochs on the device
                 self._channel_epoch += b - a
                 self.population.epoch += b - a
             self.cohort = cohorts[-1]
-            if self.scheme.scan_recontrol_every(self):
+            if self.control == "host" and \
+                    self.scheme.scan_recontrol_every(self):
                 # host recontrol reads the cohort's view between segments
                 self._sync_host_population()
+            program = self._ctl_program
+            if program is not None and program.absorb is not None:
+                program.absorb(self.scheme, {
+                    k: v.cpu().numpy() for k, v in self._ctl_state.items()})
+        else:
+            for i in range(b - a):
+                self._range_sq_pop[cohorts[i]] = rsqs[i]
 
         losses = np.asarray(log.train_loss, np.float64)
         delays = np.asarray(log.delay, np.float64)
         energies = np.asarray(log.energy, np.float64)
         received = np.asarray(log.received, np.float64)
+        # the applied controls as the device applied them (float32)
+        gds = np.asarray(log.gap_delta, np.float64)
+        rhos_u = np.asarray(log.rho_u, np.float64)
         perss = np.asarray(log.pers, np.float64)
         nss = np.asarray(log.ns_u, np.float64)
-        # the applied controls as the device applied them (float32)
-        gap_delta = np.where(ctl.delta > 0, ctl.delta, 32.0)
-        rho_u = np.asarray(ctl.rho, np.float32).astype(np.float64)
         incl = (np.asarray(log.inclusion, np.float64)
                 if log.inclusion is not None else None)
         denom = float(np.float32(self._pop_samples_total))
-        gammas = [gamma(self.ltfl, rsqs[i], gap_delta, rho_u, perss[i],
+        gammas = [gamma(self.ltfl, rsqs[i], gds[i], rhos_u[i], perss[i],
                         nss[i], **({"inclusion": incl[i],
                                     "population_samples": denom}
                                    if incl is not None else {}))
                   for i in range(b - a)]
+        device_ctl = self.control == "device"
+        if device_ctl:
+            accs, rho_m, delta_m, power_m = (
+                np.asarray(f, np.float64) for f in (
+                    log.test_acc, log.rho_mean, log.delta_mean,
+                    log.power_mean))
+        # a program's feedback is the scheme's post_round on the device:
+        # both would apply it twice
+        in_segment_feedback = (self._ctl_program is not None
+                               and self._ctl_program.feedback is not None)
         partial = self.cohort_size < self.population_size
         for i, r in enumerate(range(a, b)):
             self._cum_delay += float(delays[i])
             self._cum_energy += float(energies[i])
             eval_due = bool(self.eval_every and r % self.eval_every == 0)
-            if eval_due and i != b - a - 1:
-                raise RuntimeError(
-                    "segmentation must end segments at eval rounds")
+            if device_ctl:
+                test_acc = float(accs[i])
+            else:
+                if eval_due and i != b - a - 1:
+                    raise RuntimeError(
+                        "segmentation must end segments at eval rounds")
+                test_acc = self.evaluate() if eval_due else float("nan")
             rec = RoundRecord(
                 round=r,
                 train_loss=float(losses[i]),
-                test_acc=self.evaluate() if eval_due else float("nan"),
+                test_acc=test_acc,
                 delay=float(delays[i]),
                 energy=float(energies[i]),
                 cum_delay=self._cum_delay,
                 cum_energy=self._cum_energy,
                 received=int(received[i]),
                 gamma=float(gammas[i]),
-                rho_mean=float(np.mean(ctl.rho)),
-                delta_mean=float(np.mean(ctl.delta)),
-                power_mean=float(np.mean(ctl.power)),
+                rho_mean=(float(rho_m[i]) if ctl is None
+                          else float(np.mean(ctl.rho))),
+                delta_mean=(float(delta_m[i]) if ctl is None
+                            else float(np.mean(ctl.delta))),
+                power_mean=(float(power_m[i]) if ctl is None
+                            else float(np.mean(ctl.power))),
                 cohort=cohorts[i].tolist() if partial else [],
                 participation=self.cohort_size / self.population_size,
             )
             self.history.append(rec)
-            self.scheme.post_round(r, {"train_loss": rec.train_loss,
-                                       "delay": rec.delay,
-                                       "test_acc": rec.test_acc})
+            if not in_segment_feedback:
+                self.scheme.post_round(r, {"train_loss": rec.train_loss,
+                                           "delay": rec.delay,
+                                           "test_acc": rec.test_acc})
 
     def _sync_host_population(self) -> None:
         """Fold the device-resident (N,) channel state back into the
@@ -524,6 +628,7 @@ class ScanRunner(FedRunner):
         if self.block_fading:
             # the device redraws the whole population every epoch
             self.population.fading_epoch[:] = self.population.epoch
+        self._range_sq_pop[:] = self._range_sq_dev.cpu().numpy()
         self.channel = self.population.view(self.cohort)
         self._host_pop_stale = False
 
@@ -532,12 +637,13 @@ class ScanRunner(FedRunner):
     # ------------------------------------------------------------------ #
     def run(self, num_rounds: int, log_every: int = 0) -> List[RoundRecord]:
         if self.eval_every == 1 and self.max_segment != 1 \
-                and num_rounds > 1:
+                and num_rounds > 1 and self.control == "host":
             warnings.warn(
                 "ScanRunner with eval_every=1 (the FedRunner default) "
                 "evaluates after every round, so every segment has "
                 "length 1 and nothing is amortized; pass eval_every=0 or "
-                "an eval cadence of k rounds", stacklevel=2)
+                "an eval cadence of k rounds, or control='device' to "
+                "evaluate inside the segment", stacklevel=2)
         n0 = len(self.history)
         # round numbering restarts at 0 on every run() call, as in
         # FedRunner.run (history keeps appending)
@@ -643,6 +749,9 @@ def _run_bucket(lanes: List[ScanRunner], num_rounds: int) -> None:
     cfg = rep._to_device({k: np.asarray([[c[k]] for c in cfgs], np.float32)
                           for k in cfgs[0]})
     view = _laned_ltfl(rep.ltfl, cfg)
+    # each lane's control program reads its own 0-d slice of it
+    lane_views = [_laned_ltfl(lane.ltfl, {k: v[j, 0] for k, v in cfg.items()})
+                  for j, lane in enumerate(lanes)]
     for a, b in rep._segment_spans(0, num_rounds):
         if rep.rng == "host":
             preps = [lane._prepare_host_segment(a, b) for lane in lanes]
@@ -659,7 +768,8 @@ def _run_bucket(lanes: List[ScanRunner], num_rounds: int) -> None:
             ctls = [p[1] for p in preps]
         consts = rep._to_device({k: np.stack([c[k] for c in consts])
                                  for k in consts[0]})      # (L, ...)
-        logs = _segment(lanes, view, cfg, consts, xs, seeds, b - a)
+        logs = _segment(lanes, view, cfg, consts, xs, seeds, a, b - a,
+                        lane_views, rep._decide_first(a))
         host = RoundLog(*(None if f is None else f.cpu().numpy()
                           for f in logs))
         for i, lane in enumerate(lanes):
@@ -672,34 +782,47 @@ def _run_bucket(lanes: List[ScanRunner], num_rounds: int) -> None:
 
 def _segment(lanes: List[ScanRunner], view, cfg: Tree, consts: Tree,
              xs: Optional[Tree], seeds: Optional[List[List[int]]],
-             length: int) -> RoundLog:
-    """One segment's rounds for a bucket of lanes; no host sync inside.
-    Returns the bucket's log, each field (R, L, ...) on the device."""
+             start: int, length: int, lane_views, decide_first: bool
+             ) -> RoundLog:
+    """One segment's rounds [start, start + length) for a bucket of
+    lanes; no host sync inside. Returns the bucket's log, each field
+    (R, L, ...) on the device."""
     rep = lanes[0]
     mode = rep.segment_sync_debug if rep.device.type == "cuda" else None
     if mode is not None:
         torch.cuda.set_sync_debug_mode(mode)
     try:
-        return _segment_rounds(lanes, view, cfg, consts, xs, seeds, length)
+        return _segment_rounds(lanes, view, cfg, consts, xs, seeds, start,
+                               length, lane_views, decide_first)
     finally:
         if mode is not None:
             torch.cuda.set_sync_debug_mode("default")
 
 
-def _segment_rounds(lanes, view, cfg, consts, xs, seeds, length):
+def _segment_rounds(lanes, view, cfg, consts, xs, seeds, start, length,
+                    lane_views, decide_first):
     rep = lanes[0]
     n_lanes, u, bsz = len(lanes), rep.num_devices, rep.batch_size
     data = rep._data_dev
     step = rep._step
     unbiased = rep.participation == "unbiased"
+    program = rep._ctl_program       # a bucket's lanes all have one or none
+    device_ctl = rep.control == "device"
     params = [lane.params for lane in lanes]
     opt_states = [lane.opt_state for lane in lanes]
     comp_state = _cat_states([lane.comp_state for lane in lanes])
-    rho, delta, power, payload = (consts["rho"], consts["delta"],
-                                  consts["power"], consts["payload"])
+    fixed = None                     # the segment's constant controls
+    if program is None:
+        fixed = (consts["rho"], consts["delta"], consts["power"],
+                 consts["payload"])
+        fixed_gap_delta = torch.where(fixed[1] > 0, fixed[1], 32.0)
+        fixed_means = [torch.mean(f, dim=-1) for f in fixed[:3]]
+    if device_ctl:
+        no_acc = torch.full((n_lanes,), float("nan"), device=rep.device)
     lr = cfg["learning_rate"]
     cols = {k: [] for k in RoundLog._fields}
     for i in range(length):
+        r = start + i
         if xs is not None:               # host rng: the replayed inputs
             ch = ChannelArrays(xs["distance"][i], xs["fading"][i],
                                xs["interference"][i], xs["cpu"][i],
@@ -710,9 +833,13 @@ def _segment_rounds(lanes, view, cfg, consts, xs, seeds, length):
             batch = _gather(data, xs["batch_idx"][i].reshape(n_lanes * u,
                                                              bsz))
             round_seeds = [s[i] for s in seeds]
+            rho, delta, power, payload = fixed
         else:                            # device rng: drawn here
-            ch, cohort, weights, alpha, inclusion, batch = _device_draws(
-                lanes, power)
+            decide = decide_first if i == 0 else (
+                program is not None and program.every <= 1)
+            (ch, cohort, weights, alpha, inclusion, batch,
+             (rho, delta, power, payload)) = _device_round(
+                lanes, lane_views, fixed, r, decide)
             round_seeds = [lane._generator for lane in lanes]
         controls = []
         for j in range(n_lanes):
@@ -724,17 +851,37 @@ def _segment_rounds(lanes, view, cfg, consts, xs, seeds, length):
         params, opt_states, comp_state, metrics = step.lanes(
             params, opt_states, comp_state, batch, controls, round_seeds)
         delay, energy = round_accounting_dev(view, ch, payload, rho, power)
+        if xs is None:
+            # the carried (N,) range estimates; the program's feedback
+            for j, lane in enumerate(lanes):
+                lane._range_sq_dev.index_copy_(0, cohort[j],
+                                               metrics[j]["range_sq"])
+                if program is not None and program.feedback is not None:
+                    lane._ctl_state = lane._ctl_program.feedback(
+                        lane._ctl_state, cohort[j], metrics[j]["loss"],
+                        delay[j])
         cols["train_loss"].append(torch.stack([m["loss"] for m in metrics]))
         cols["delay"].append(delay)
         cols["energy"].append(energy)
         cols["received"].append(torch.sum(alpha, dim=-1))
         cols["range_sq"].append(torch.stack(
             [m["range_sq"] for m in metrics]))
+        cols["gap_delta"].append(fixed_gap_delta if program is None
+                                 else torch.where(delta > 0, delta, 32.0))
+        cols["rho_u"].append(rho)
         cols["pers"].append(packet_error_rate_dev(view.wireless, ch, power))
         cols["ns_u"].append(ch.num_samples)
         cols["cohort"].append(cohort)
         if unbiased:
             cols["inclusion"].append(inclusion)
+        if device_ctl:
+            due = rep.eval_every and r % rep.eval_every == 0
+            cols["test_acc"].append(_eval_head(lanes, params) if due
+                                    else no_acc)
+            means = (fixed_means if program is None else
+                     [torch.mean(f, dim=-1) for f in (rho, delta, power)])
+            for k, m in zip(("rho_mean", "delta_mean", "power_mean"), means):
+                cols[k].append(m)
     for lane, p, o, c in zip(lanes, params, opt_states,
                              _split_state(comp_state, n_lanes, u)):
         lane.params, lane.opt_state, lane.comp_state = p, o, c
@@ -742,22 +889,36 @@ def _segment_rounds(lanes, view, cfg, consts, xs, seeds, length):
                        for k, v in cols.items()})
 
 
-def _device_draws(lanes: List[ScanRunner], power: torch.Tensor):
-    """One round's draws for every lane from its own generator, in a
-    fixed order (fading, cohort, batch indices, packet outcomes; the
-    step then draws the quantizer's uniforms): each lane consumes its
-    stream exactly as it would alone. Returns the (L, U) channel view,
-    cohorts, weights, packet outcomes and inclusion (or None), and the
-    (L * U, B, ...) batch."""
+def _eval_head(lanes: List[ScanRunner], params: List[Tree]) -> torch.Tensor:
+    """(L,) accuracies: each lane's mean ``model.accuracy`` over the fixed
+    batches ``evaluate`` scores, float32 on the device."""
+    with torch.no_grad():
+        return torch.stack([
+            torch.mean(torch.stack([lane.model.accuracy(p, b)
+                                    for b in lane._eval_dev]))
+            for lane, p in zip(lanes, params)])
+
+
+def _device_round(lanes: List[ScanRunner], lane_views, fixed, r: int,
+                  decide: bool):
+    """One round's draws and controls for every lane, each from its own
+    generator in a fixed order: the fading, the cohort and the batch
+    indices; then the control program's decision (its BO draws), when
+    the lanes have one; then the packet outcomes at the decided power
+    (the step then draws the quantizer's uniforms). Each lane consumes
+    its stream exactly as it would alone, and without a program as under
+    host control. ``fixed`` holds the segment's constant (rho, delta,
+    power, payload) when there is no program. Returns the (L, U) channel
+    view, cohorts, weights, packet outcomes and inclusion (or None), the
+    (L * U, B, ...) batch and the (L, U) controls."""
     rep = lanes[0]
     u, bsz = rep.num_devices, rep.batch_size
-    views, cohorts, weights, alphas, incls, idx = [], [], [], [], [], []
-    for j, lane in enumerate(lanes):
+    views, cohorts, weights, incls, idx = [], [], [], [], []
+    for lane in lanes:
         gen = lane._generator
-        w = lane.ltfl.wireless
         if lane.block_fading:
             # the whole population redrawn each epoch, on the device
-            fading, interference = draw_fading_dev(w, gen,
+            fading, interference = draw_fading_dev(lane.ltfl.wireless, gen,
                                                    lane.population_size)
             lane._pop_dev = lane._pop_dev._replace(
                 fading_mean=fading, interference=interference)
@@ -774,7 +935,6 @@ def _device_draws(lanes: List[ScanRunner], power: torch.Tensor):
         draws = torch.minimum(draws.to(torch.int64), sizes[:, None] - 1)
         rows = torch.index_select(lane._parts_padded, 0, cohort)
         idx.append(torch.gather(rows, 1, draws))
-        alphas.append(sample_transmissions_dev(w, ch, power[j], gen))
         if lane.participation == "unbiased":
             weights.append(ch.num_samples / pi)
             incls.append(pi)
@@ -782,10 +942,24 @@ def _device_draws(lanes: List[ScanRunner], power: torch.Tensor):
             weights.append(ch.num_samples)
         views.append(ch)
         cohorts.append(cohort)
+    if fixed is None:
+        ctls = []
+        for lane, ch, cohort, lview in zip(lanes, views, cohorts,
+                                           lane_views):
+            ctl, lane._ctl_state = lane._ctl_program.controls(
+                lane._ctl_state, r, cohort, ch,
+                torch.index_select(lane._range_sq_dev, 0, cohort),
+                lane._generator, lview, decide=decide)
+            ctls.append(ctl)
+        fixed = tuple(torch.stack(f) for f in zip(*ctls))
+    power = fixed[2]
+    alphas = [sample_transmissions_dev(lane.ltfl.wireless, ch, power[j],
+                                       lane._generator)
+              for j, (lane, ch) in enumerate(zip(lanes, views))]
     return (ChannelArrays.stack(views), torch.stack(cohorts),
             torch.stack(weights), torch.stack(alphas),
             torch.stack(incls) if incls else None,
-            _gather(rep._data_dev, torch.cat(idx)))
+            _gather(rep._data_dev, torch.cat(idx)), fixed)
 
 
 def _gather(data: Tree, idx: torch.Tensor) -> Tree:

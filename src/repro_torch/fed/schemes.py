@@ -13,10 +13,12 @@ delay/energy accounting charges.
 
 The scanned engine's hooks (``repro_torch.fed.scan_engine``):
 ``scan_supported``, ``scan_recontrol_every`` (the host-recontrol cadence
-that ends a scanned segment) and ``scan_lane_signature`` (what a scheme
-bakes into a segment, which ``run_sweep`` buckets lanes by). The
-in-segment control programs (``scan_control_program``) and the async
-engine's ``configure_async`` are not ported yet.
+that ends a scanned segment), ``scan_lane_signature`` (what a scheme
+bakes into a segment, which ``run_sweep`` buckets lanes by) and
+``scan_control_program`` (the ``repro_torch.control.ControlProgram``
+that ``ScanRunner(control="device")`` runs inside the segment: LTFL's
+per-round Algorithm 1 through ``solve_dev``, FedMP's UCB bandit on the
+device). The async engine's ``configure_async`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -24,9 +26,17 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
+from repro_torch.control import (
+    ControlProgram,
+    DeviceControls,
+    optimal_delta_dev,
+    optimal_rho_dev,
+    solve_dev,
+)
 from repro_torch.core import controller as controller_mod
-from repro_torch.core.channel import packet_error_rate
+from repro_torch.core.channel import f32, packet_error_rate
 from repro_torch.core.compressors import (
     Compressor,
     UniformSource,
@@ -35,7 +45,7 @@ from repro_torch.core.compressors import (
     sign_compressor,
     stc_compressor,
 )
-from repro_torch.core.quantization import payload_bits_host
+from repro_torch.core.quantization import payload_bits, payload_bits_host
 
 
 @dataclass
@@ -64,6 +74,14 @@ class BaseScheme:
         the host recomputes ``controls`` (a segment boundary); 0 means
         the controls are constant for the whole run."""
         return 0
+
+    def scan_control_program(self, runner) -> Optional[ControlProgram]:
+        """The ``ControlProgram`` that recomputes this scheme's controls
+        inside a segment under ``ScanRunner(control="device")``, or None
+        when the scheme has no device twin of its control loop (the
+        runner then raises if the scheme recontrols). Schemes whose
+        ``scan_recontrol_every`` is 0 never need one."""
+        return None
 
     def scan_lane_signature(self, runner) -> tuple:
         """Hashable identity of everything this scheme bakes into a
@@ -120,6 +138,9 @@ class LTFLScheme(BaseScheme):
         self._decision: Optional[controller_mod.ControlDecision] = None
         self._solved_epoch: int = -1
         self._solved_cohort: int = -1
+        # how many rounds ran the device solve (the reference counts the
+        # traces that embed it): hold rounds must not
+        self._n_decide_solves: int = 0
 
     def compressor(self, *, uniforms: Optional[UniformSource] = None
                    ) -> Compressor:
@@ -188,6 +209,63 @@ class LTFLScheme(BaseScheme):
         v = self.runner.num_params
         xi = self.runner.ltfl.xi_bits
         return (v * ctl.delta + xi) * (1.0 - ctl.rho)        # Eq. 18/32
+
+    def scan_control_program(self, runner) -> ControlProgram:
+        """Algorithm 1 on the device: ``solve_dev`` re-solves against the
+        round's own fading and cohort, per-round recontrol with no
+        segment boundary. The ablation switches mirror ``controls``: the
+        full solve (or, with ``use_power=False``, the closed forms at
+        mid power), then prune / quant zeroed. The state is the last
+        decision; a cadence k > 1 declares ``every=k`` and hold rounds
+        return it without solving. Regime values come from the lane's
+        ``ltfl`` argument, never from this scheme or runner."""
+        v = runner.num_params
+        u = runner.num_devices
+        device = runner.device
+        use_prune, use_quant = self.uses_prune, self.use_quant
+        use_power = self.use_power
+        scheme = self
+
+        def solve_controls(ltfl, ch, range_sq, generator) -> DeviceControls:
+            scheme._n_decide_solves += 1
+            if use_power:
+                d = solve_dev(ltfl, ch, v, range_sq, generator)
+                rho_full, delta_full, power = d.rho, d.delta, d.power
+            else:
+                # fixed mid power, closed-form rho/delta only (the host
+                # _solve's no-power path)
+                power = torch.zeros((u,), device=device) \
+                    + 0.5 * f32(ltfl.wireless.p_max)
+                payload0 = payload_bits(v, f32(ltfl.delta_max),
+                                        ltfl.xi_bits)
+                rho_full = optimal_rho_dev(ltfl, ch, payload0, power)
+                delta_full = optimal_delta_dev(ltfl, ch, rho_full, power, v)
+            rho = rho_full if use_prune else torch.zeros_like(rho_full)
+            delta = delta_full if use_quant else torch.zeros_like(rho_full)
+            if use_quant:       # Eq. 18/32 through the shared formula
+                payload = payload_bits(v, delta, ltfl.xi_bits) * (1.0 - rho)
+            else:
+                payload = np.float32(32.0 * v) * (1.0 - rho)
+            return DeviceControls(rho=rho, delta=delta, power=power,
+                                  payload=payload)
+
+        w0 = runner.ltfl.wireless
+        zeros = torch.zeros((u,), dtype=torch.float32, device=device)
+        init = DeviceControls(
+            rho=zeros, delta=zeros,
+            power=zeros + np.float32(0.5 * (w0.p_min + w0.p_max)),
+            payload=zeros)      # replaced at the first decide round
+
+        def controls(state, r, cohort, ch, range_sq, generator, ltfl, *,
+                     decide):
+            if not decide:      # hold: the carried decision, no solve
+                return state, state
+            ctl = solve_controls(ltfl, ch, range_sq, generator)
+            return ctl, ctl
+
+        return ControlProgram(init=init, controls=controls,
+                              every=max(self.scan_recontrol_every(runner),
+                                        1))
 
 
 class FedSGDScheme(BaseScheme):
@@ -273,6 +351,76 @@ class FedMPScheme(BaseScheme):
     def scan_lane_signature(self, runner) -> tuple:
         return (type(self).__name__, tuple(float(a) for a in self.arms),
                 float(self.ucb_c))
+
+    def scan_control_program(self, runner) -> ControlProgram:
+        """The UCB bandit on the device: (N, A) float32 counts and reward
+        sums plus the previous loss, updated each round by ``feedback``
+        (the device twin of ``post_round``: the same argmin-unexplored /
+        argmax-UCB arm rule, the same loss decrease per unit delay).
+        ``absorb`` writes the state back into this scheme after a
+        segment; ``_choice`` is not synced (the last cohort's arms live
+        in the device state only)."""
+        device = runner.device
+        arms = torch.as_tensor(self.arms, dtype=torch.float32,
+                               device=device)
+        ucb_c = np.float32(self.ucb_c)
+        u = runner.num_devices
+        payload_full = np.float32(32.0 * runner.num_params)
+        zeros = torch.zeros((u,), dtype=torch.float32, device=device)
+        ones = torch.ones((u,), dtype=torch.float32, device=device)
+        one = torch.ones((), dtype=torch.float32, device=device)
+
+        def f32_tensor(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+        init = {
+            "counts": f32_tensor(self._counts),
+            "rewards": f32_tensor(self._rewards),
+            "choice": torch.zeros((u,), dtype=torch.int64, device=device),
+            "prev_loss": f32_tensor(self._prev_loss or 0.0),
+            "has_prev": f32_tensor(0.0 if self._prev_loss is None else 1.0),
+        }
+
+        def controls(state, r, cohort, ch, range_sq, generator, ltfl, *,
+                     decide):
+            # every round decides (every=1): the bandit has no hold path
+            c = torch.index_select(state["counts"], 0, cohort)     # (U, A)
+            rw = torch.index_select(state["rewards"], 0, cohort)
+            two_log_t = np.float32(2.0) * np.log(np.float32(r + 1))
+            unexplored = torch.any(c == 0.0, dim=1)
+            safe = torch.clamp(c, min=1e-12)
+            ucb = rw / safe + ucb_c * torch.sqrt(two_log_t / safe)
+            choice = torch.where(unexplored, torch.argmin(c, dim=1),
+                                 torch.argmax(ucb, dim=1))
+            rho = torch.index_select(arms, 0, choice)
+            ctl = DeviceControls(
+                rho=rho, delta=zeros,
+                power=zeros + 0.5 * f32(ltfl.wireless.p_max),
+                payload=payload_full * (1.0 - rho))
+            return ctl, {**state, "choice": choice}
+
+        def feedback(state, cohort, loss, delay):
+            gain = torch.clamp(state["prev_loss"] - loss, min=0.0)
+            reward = torch.where(state["has_prev"] > 0.0,
+                                 gain / torch.clamp(delay, min=1e-9), 0.0)
+            pulled = (cohort, state["choice"])
+            return {**state,
+                    "counts": state["counts"].index_put(
+                        pulled, ones, accumulate=True),
+                    "rewards": state["rewards"].index_put(
+                        pulled, reward * ones, accumulate=True),
+                    "prev_loss": loss.to(torch.float32),
+                    "has_prev": one}
+
+        def absorb(scheme, state):
+            scheme._counts = np.asarray(state["counts"], np.float64)
+            scheme._rewards = np.asarray(state["rewards"], np.float64)
+            scheme._prev_loss = (float(state["prev_loss"])
+                                 if float(state["has_prev"]) > 0.0
+                                 else None)
+
+        return ControlProgram(init=init, controls=controls,
+                              feedback=feedback, absorb=absorb)
 
     def post_round(self, rnd, metrics):
         loss = metrics["train_loss"]

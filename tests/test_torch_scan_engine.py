@@ -19,7 +19,9 @@ per-round loop.
   and for STC (its residual carried through the segment); accounting and
   gamma at the same tolerances. ``max_segment=1`` is the per-round loop,
   and a second ``run`` restarts the round numbering.
-* The guards, and ``make_scanned_step`` against a loop of its step.
+* The guards (``control="device"`` with ``rng="host"`` raises, as the
+  reference's does), and ``make_scanned_step`` against a loop of its
+  step.
 """
 import dataclasses
 import types
@@ -370,8 +372,14 @@ def test_scan_guards(world):
                           scheme or ALL_SCHEMES["fedsgd"](), batch_size=8,
                           device="cpu", **kw)
 
-    with pytest.raises(ValueError, match="A5"):
-        make(control="device", rng="device")
+    # the reference's guard: device control needs the device rng stream
+    with pytest.raises(ValueError, match="rng='device'"):
+        make(control="device", rng="host")
+    with pytest.raises(ValueError, match="rng='device'"):
+        RefScanRunner(RefMLP(RefMLPConfig(**MLP_KW)),
+                      params_to_numpy(params), RefLTFLConfig(**LTFL), train,
+                      test, REF_SCHEMES["fedsgd"](), batch_size=8,
+                      control="device", rng="host")
     with pytest.raises(ValueError, match="A7"):
         make(population_sharding=2, rng="device")
     with pytest.raises(ValueError, match="rng="):

@@ -623,3 +623,24 @@ def check_decode_from_the_prefill_cache(pair):
     assert rel(as_np(tl), as_np(rl)) <= TOL
     for k in rcache:
         assert str(tcache[k].dtype)[6:] == str(rcache[k].dtype), k
+
+
+def host_bo_draws(seed: int, alternations: int, iters: int, d: int,
+                  init_points: int = 4, n_candidates: int = 512):
+    """The host optimizer's numpy draw order (per alternation: the init
+    uniforms, then per iteration the candidate uniforms and the
+    0.1-scaled local normals) as the port's ``BODraws`` with a leading
+    alternation axis, float32: tests/test_device_control.py's
+    ``host_bo_draws``."""
+    from repro_torch.control import BODraws
+    rng = np.random.default_rng(seed)
+    ui = np.empty((alternations, init_points, d))
+    uc = np.empty((alternations, iters, n_candidates, d))
+    ep = np.empty((alternations, iters, n_candidates // 4, d))
+    for a in range(alternations):
+        ui[a] = rng.uniform(size=(init_points, d))
+        for m in range(iters):
+            uc[a, m] = rng.uniform(size=(n_candidates, d))
+            ep[a, m] = rng.normal(0.0, 0.1, size=(n_candidates // 4, d))
+    return BODraws(*(torch.from_numpy(x.astype(np.float32))
+                     for x in (ui, uc, ep)))
