@@ -218,6 +218,35 @@ Phases; any failure exits non-zero before the result lines:
    benchmarks/device_control.py (MLP, batch 4, ``bo_iters`` 8,
    ``alt_max_iters`` 3, block fading; U = 8, 16, 32), s a round.
 
+25. the buffered-async engine at phase 22's width (U = 30, batch 50,
+   ``LTFLConfig()``): ``AsyncRunner`` with K = 15 and a deadline midway
+   between the fastest and the slowest completion time (read from
+   ``device_round_delay_dev``) of the first cohort under the synchronous
+   round-0 controls; 10 rounds, one segment under the sync check, each
+   of (a) ``rng="host"``, (b) ``rng="device"`` with
+   ``ChurnSpec(0.1, 0.5, 0.05)``, (c) ``rng="device",
+   control="device"``, ``LTFLScheme(recontrol_every=1)``, block fading.
+   Each: 32 quantizer launches a round counted from 0, 0 < n_admitted
+   <= 15 every round and < 30 on some, received <= n_admitted, the
+   logged tau finite and non-negative and the final tau equal to a host
+   replay of the logged admissions; its steady s a round, peak memory
+   and device events in 2 rounds (torch.profiler) beside
+   ``ScanRunner``'s in the same mode. Under deterministic cuDNN:
+   ``AsyncRunner(deadline=inf, buffer_size=U, churn=None)`` against
+   ``ScanRunner`` over 3 rounds under both rng modes (losses, delay,
+   energy, gamma, received, weights bitwise); an async ``run_sweep``
+   bucket of 2 seed lanes (device rng, churn, the deadline, K = 15): 32
+   quantizer launches a round for the bucket, each lane its solo
+   ``AsyncRunner`` (losses, admissions, tau, weights bitwise; delay and
+   energy within ``SWEEP_ACCOUNTING_REL``);
+26. the straggler regime of benchmarks/async_engine.py (MLP hidden 16,
+   downsample 4, batch 4, CPU 5e6-110e6 Hz, FedSGD, eval every round;
+   U = 16 and 32; 30 sync rounds, then 90 async with the deadline at 0.35
+   x the sync round's mean delay and K = U/2): the simulated seconds of
+   the paper's wireless model to the target accuracy (the best the sync
+   run reaches in its first 20 rounds), sync and async, and their ratio,
+   reported, not gated.
+
 ``--profile DIR`` also writes torch.profiler tables of one edge round
 (``DIR/profile_round.txt``), one datacenter step
 (``DIR/profile_step.txt``; phase 18's ``profile_step_<arch>.txt``), one
@@ -230,7 +259,9 @@ idle shares.
 The last three lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. The ``stochastic_quant``
 row also carries the scanned engine's launches a round by rng mode and
-under device control (``control_launches_per_round``), the
+under device control (``control_launches_per_round``), the async
+engine's by mode (``async_launches_per_round``) and for its sweep bucket
+(``async_sweep_launches_per_round``), the
 sweep bucket's launches a round for its lanes and its check against the
 plain version at the bucket's rows (``max_abs_err`` is the larger of
 phase 3's and that check's float32 error). The
@@ -2821,6 +2852,342 @@ def _control_mlp_timing():
     return rows
 
 
+# --------------------------------------------------------------------------- #
+# The buffered-async engine (phases 25-26)
+# --------------------------------------------------------------------------- #
+ASYNC_ROUNDS = 10                       # one segment a run
+ASYNC_BUFFER = 15                       # K, half the paper's U = 30
+ASYNC_CHURN = dict(p_depart=0.1, p_return=0.5, p_drop=0.05)
+ASYNC_EQ_ROUNDS = 3                     # degenerate case and sweep lanes
+ASYNC_SWEEP_SEEDS = (0, 1)
+# benchmarks/async_engine.py's straggler regime
+STRAGGLER_CLIENTS = (16, 32)
+STRAGGLER_CPU = (5e6, 110e6)            # a 20x CPU-frequency spread
+STRAGGLER_DEADLINE_FRAC = 0.35          # of the sync round's mean delay
+STRAGGLER_ROUNDS = (30, 90)             # sync, async
+
+
+def _async_checks(runner, hist, k: int, where: str) -> dict:
+    """Per round: 0 < n_admitted <= K, received <= n_admitted, the
+    logged (pre-reset) tau finite and non-negative; the final tau equal
+    to a host replay of the logged admissions (0 exactly where the last
+    admission was); some round admitting fewer than U."""
+    import numpy as np
+    u = runner.cohort_size
+    if len(hist) != len(runner.async_history):
+        fail(f"{where}: {len(hist)} records, {len(runner.async_history)} "
+             f"async rows")
+    tau = np.zeros(runner.population_size)
+    for rec, arec in zip(hist, runner.async_history):
+        n = arec["n_admitted"]
+        if not (0 < n <= k) or rec.received > n:
+            fail(f"{where}: round {rec.round} admitted {n} (K = {k}), "
+                 f"received {rec.received}")
+        t = arec["tau"]
+        if not (np.all(np.isfinite(t)) and np.all(t >= 0.0)):
+            fail(f"{where}: round {rec.round} tau {t.tolist()}")
+        if not math.isfinite(rec.train_loss):
+            fail(f"{where}: round {rec.round} loss {rec.train_loss}")
+        cohort = (np.asarray(rec.cohort, np.int64) if rec.cohort
+                  else np.arange(u))
+        if not np.array_equal(t, tau[cohort]):
+            fail(f"{where}: round {rec.round} logged tau {t.tolist()} vs "
+                 f"the replay's {tau[cohort].tolist()}")
+        tau[cohort] = np.where(arec["admitted"], 0.0, tau[cohort] + 1.0)
+    final = runner.staleness
+    if not np.array_equal(final, tau):
+        fail(f"{where}: final tau {final.tolist()} vs the replay's "
+             f"{tau.tolist()}")
+    admitted = [a["n_admitted"] for a in runner.async_history]
+    if not min(admitted) < u:
+        fail(f"{where}: every round admitted all {u}")
+    return {"n_admitted": admitted,
+            "received": [r.received for r in hist],
+            "staleness": [r.staleness for r in hist],
+            "losses": [r.train_loss for r in hist],
+            "delay": [r.delay for r in hist]}
+
+
+def phase_async():
+    """Phase 25: AsyncRunner at the paper's width under host rng, device
+    rng with churn and device control, each a sync-free segment with 32
+    quantizer launches a round; the degenerate case bitwise ScanRunner
+    under both rng modes; an async sweep bucket of 2 seed lanes, each
+    lane bitwise its solo run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import LTFLConfig, ResNetConfig
+    from repro_torch.core.delay_energy import device_round_delay_dev
+    from repro_torch.fed import AsyncRunner, ChurnSpec, LTFLScheme, \
+        ScanRunner
+    from repro_torch.kernels.stochastic_quant import LAUNCHES
+    from repro_torch.models import ResNet
+
+    train, test = edge_world(20000, 2000)
+    model = ResNet(ResNetConfig())
+    n_leaves = len(model.param_specs())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen)
+    base = LTFLConfig()
+    u = base.num_devices
+
+    def make(cls, scheme, **kw):
+        kw = {"batch_size": 50, "seed": 0, "eval_every": 0,
+              "device": "cuda", **kw}
+        return cls(model, params, base, train, test, scheme, **kw)
+
+    # the deadline: midway between the fastest and the slowest device of
+    # the first cohort under the synchronous engine's round-0 controls
+    probe = make(ScanRunner, LTFLScheme(recontrol_every=ASYNC_ROUNDS))
+    ctl = probe.scheme.controls(0)
+
+    def dev(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device="cuda")
+    t_u = device_round_delay_dev(
+        base.wireless, probe.channel.to_arrays("cuda"),
+        dev(probe.scheme.payload_bits(ctl)), dev(ctl.rho),
+        dev(ctl.power)).cpu().numpy().astype(np.float64)
+    deadline = float(0.5 * (t_u.min() + t_u.max()))
+    del probe
+    log(f"[async] first cohort's completion times {t_u.min()!r} .. "
+        f"{t_u.max()!r} s under the synchronous controls: deadline "
+        f"{deadline!r} s, buffer K = {ASYNC_BUFFER} of U = {u}")
+    out = {"deadline_s": deadline, "buffer_size": ASYNC_BUFFER,
+           "launches_per_round": {}, "modes": {}}
+
+    modes = {
+        "host": (dict(rng="host"),
+                 lambda: LTFLScheme(recontrol_every=ASYNC_ROUNDS)),
+        "device_churn": (dict(rng="device"),
+                         lambda: LTFLScheme(recontrol_every=ASYNC_ROUNDS)),
+        "device_control": (dict(rng="device", control="device",
+                                block_fading=True),
+                           lambda: LTFLScheme(recontrol_every=1)),
+    }
+    for name, (kw, scheme) in modes.items():
+        churn = (ChurnSpec(**ASYNC_CHURN) if name == "device_churn"
+                 else None)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        runner = make(AsyncRunner, scheme(), deadline=deadline,
+                      buffer_size=ASYNC_BUFFER, churn=churn, **kw)
+        spans = runner._segment_spans(0, ASYNC_ROUNDS)
+        if spans != [(0, ASYNC_ROUNDS)]:
+            fail(f"async {name}: segments {spans}, want one")
+        LAUNCHES["stochastic_quant"] = 0
+        first = _timed(lambda: _sync_free_run(runner, ASYNC_ROUNDS,
+                                              f"async {name}"))
+        launched = LAUNCHES["stochastic_quant"]
+        if launched != ASYNC_ROUNDS * n_leaves:
+            fail(f"async {name}: {launched} quantizer launches in "
+                 f"{ASYNC_ROUNDS} rounds, want {n_leaves} a round")
+        row = _async_checks(runner, list(runner.history), ASYNC_BUFFER,
+                            f"async {name}")
+        steady = _timed(lambda: _sync_free_run(runner, ASYNC_ROUNDS,
+                                               f"async {name}"))
+        peak = torch.cuda.max_memory_allocated()
+        events = device_events(lambda: runner.run(2))
+        del runner
+        # the synchronous engine in the same mode, for the time and the
+        # memory beside it (a 2-round warm-up, then timed)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sync = make(ScanRunner, scheme(), **kw)
+        sync.run(2)
+        sync_s = _timed(lambda: sync.run(ASYNC_ROUNDS))
+        sync_peak = torch.cuda.max_memory_allocated()
+        sync_events = device_events(lambda: sync.run(2))
+        del sync
+        out["launches_per_round"][name] = launched // ASYNC_ROUNDS
+        row.update({"segment_s_first": first,
+                    "round_s": steady / ASYNC_ROUNDS,
+                    "scan_round_s": sync_s / ASYNC_ROUNDS,
+                    "async_vs_scan": steady / sync_s,
+                    "max_memory_allocated": peak,
+                    "scan_max_memory_allocated": sync_peak,
+                    "device_events_2_rounds": events,
+                    "scan_device_events_2_rounds": sync_events})
+        out["modes"][name] = row
+        log(f"[async] paper width {name} ({kw}, churn {churn}): "
+            f"{ASYNC_ROUNDS} rounds in one segment, no host sync inside, "
+            f"quantizer launches {launched} ({launched // ASYNC_ROUNDS} a "
+            f"round), n_admitted {row['n_admitted']}, received "
+            f"{row['received']}, staleness {row['staleness']}, losses "
+            f"{row['losses']}, steady s a round {steady / ASYNC_ROUNDS!r} "
+            f"(ScanRunner {sync_s / ASYNC_ROUNDS!r}), "
+            f"max_memory_allocated={peak} bytes (ScanRunner {sync_peak}), "
+            f"device events in 2 rounds {events} (ScanRunner "
+            f"{sync_events})")
+
+    with deterministic_cudnn():
+        # deadline = inf, K = U, no churn: ScanRunner bitwise
+        for mode in ("host", "device"):
+            runs = []
+            for cls in (ScanRunner, AsyncRunner):
+                r = make(cls, LTFLScheme(recontrol_every=ASYNC_EQ_ROUNDS),
+                         rng=mode)
+                runs.append((r, list(_sync_free_run(
+                    r, ASYNC_EQ_ROUNDS, f"async degenerate {mode}"))))
+            (s, hs), (a, ha) = runs
+            for x, y in zip(hs, ha):
+                for f in ("train_loss", "delay", "energy", "gamma",
+                          "received", "staleness"):
+                    if getattr(x, f) != getattr(y, f):
+                        fail(f"async degenerate rng={mode}: round "
+                             f"{x.round} {f} {getattr(y, f)!r} vs "
+                             f"ScanRunner's {getattr(x, f)!r}")
+            if not all(torch.equal(v, a.params[k])
+                       for k, v in s.params.items()):
+                fail(f"async degenerate rng={mode}: weights differ from "
+                     f"ScanRunner's")
+            if any(d["n_admitted"] != u for d in a.async_history):
+                fail(f"async degenerate rng={mode}: a round admitted "
+                     f"fewer than U")
+            del runs, s, a
+        log(f"[async] AsyncRunner(deadline=inf, buffer_size=U, churn=None) "
+            f"equals ScanRunner bitwise under both rng modes over "
+            f"{ASYNC_EQ_ROUNDS} rounds (losses, delay, energy, gamma, "
+            f"received, weights)")
+
+        # an async bucket of 2 seed lanes (device rng, churn, deadline,
+        # K): one launch per leaf per round, each lane its solo run
+        kw = dict(rng="device", deadline=deadline, buffer_size=ASYNC_BUFFER,
+                  churn=ChurnSpec(**ASYNC_CHURN))
+
+        def scheme():
+            return LTFLScheme(recontrol_every=ASYNC_EQ_ROUNDS)
+        parent = make(AsyncRunner, scheme(), **kw)
+        parent.segment_sync_debug = "error"
+        LAUNCHES["stochastic_quant"] = 0
+        try:
+            hists = parent.run_sweep(list(ASYNC_SWEEP_SEEDS),
+                                     ASYNC_EQ_ROUNDS, scheme_factory=scheme)
+        except RuntimeError as err:
+            fail(f"async sweep: a host sync inside a segment: {err}")
+        finally:
+            parent.segment_sync_debug = None
+        sweep_launched = LAUNCHES["stochastic_quant"]
+        buckets = parent._last_sweep_buckets
+        if [b["lane_indices"] for b in buckets] != [[0, 1]]:
+            fail(f"async sweep: buckets "
+                 f"{[b['lane_indices'] for b in buckets]}, want one of 2")
+        if sweep_launched != ASYNC_EQ_ROUNDS * n_leaves:
+            fail(f"async sweep: {sweep_launched} quantizer launches in "
+                 f"{ASYNC_EQ_ROUNDS} rounds, want {n_leaves} a round for "
+                 f"the bucket")
+        for seed, hist, lane in zip(ASYNC_SWEEP_SEEDS, hists,
+                                    buckets[0]["lanes"]):
+            solo = make(AsyncRunner, scheme(), seed=seed, **kw)
+            h_solo = list(solo.run(ASYNC_EQ_ROUNDS))
+            where = f"async sweep lane seed {seed}"
+            same_host_fields(hist, h_solo, where)
+            for x, y in zip(hist, h_solo):
+                if x.train_loss != y.train_loss or \
+                        x.staleness != y.staleness:
+                    fail(f"{where}: round {x.round} loss/staleness "
+                         f"{x.train_loss!r}/{x.staleness!r} vs its solo "
+                         f"run's {y.train_loss!r}/{y.staleness!r}")
+                for f in ("delay", "energy"):
+                    a, b = getattr(x, f), getattr(y, f)
+                    if abs(a - b) > SWEEP_ACCOUNTING_REL * abs(b):
+                        fail(f"{where}: round {x.round} {f} {a!r} vs its "
+                             f"solo run's {b!r}")
+            for p, q in zip(lane.async_history, solo.async_history):
+                if not (np.array_equal(p["admitted"], q["admitted"])
+                        and np.array_equal(p["tau"], q["tau"])):
+                    fail(f"{where}: round {p['round']} admissions or tau "
+                         f"differ from its solo run's")
+            if not all(torch.equal(v, solo.params[k])
+                       for k, v in lane.params.items()):
+                fail(f"{where}: final weights differ from its solo run's")
+            del solo
+        del buckets, hists, parent
+    out["sweep_launches_per_round"] = sweep_launched // ASYNC_EQ_ROUNDS
+    out["degenerate_bitwise"] = True
+    out["sweep_lanes_bitwise_solo"] = True
+    torch.cuda.empty_cache()
+    log(f"[async] sweep bucket of {len(ASYNC_SWEEP_SEEDS)} seed lanes "
+        f"(device rng, churn, deadline, K = {ASYNC_BUFFER}): quantizer "
+        f"launches {sweep_launched} "
+        f"({sweep_launched // ASYNC_EQ_ROUNDS} a round), each lane equals "
+        f"its solo AsyncRunner (losses, admissions, tau, weights bitwise; "
+        f"delay and energy within {SWEEP_ACCOUNTING_REL})")
+    log(f"[async] {json.dumps(out)}")
+    return out
+
+
+def _time_to_acc(history, target: float):
+    """(simulated s, round) at the first round reaching ``target``
+    accuracy; (inf, -1) if none does."""
+    for rec in history:
+        if rec.test_acc >= target:
+            return rec.cum_delay, rec.round
+    return float("inf"), -1
+
+
+def phase_straggler():
+    """Phase 26: benchmarks/async_engine.py's straggler regime on the
+    card: simulated time to a target accuracy, sync against async."""
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.configs import LTFLConfig, WirelessConfig
+    from repro_torch.fed import AsyncRunner, FedSGDScheme, ScanRunner
+    from repro_torch.models import MLP, MLPConfig
+    warnings.filterwarnings("ignore", message="ScanRunner with eval_every=1")
+    train, test = edge_world(2048, 256)
+    mlp = MLP(MLPConfig(hidden=(16,), downsample=4))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = mlp.init(gen)
+    wireless = WirelessConfig(cpu_min=STRAGGLER_CPU[0],
+                              cpu_max=STRAGGLER_CPU[1])
+    rounds_sync, rounds_async = STRAGGLER_ROUNDS
+    rows = []
+    for clients in STRAGGLER_CLIENTS:
+        ltfl = LTFLConfig(num_devices=clients, samples_min=40,
+                          samples_max=60, learning_rate=0.1,
+                          wireless=wireless)
+
+        def make(cls, **kw):
+            return cls(mlp, params, ltfl, train, test, FedSGDScheme(),
+                       batch_size=4, seed=0, eval_every=1, device="cuda",
+                       **kw)
+        t0 = time.time()
+        h_sync = make(ScanRunner).run(rounds_sync)
+        sync_round = float(np.mean([r.delay for r in h_sync]))
+        deadline = STRAGGLER_DEADLINE_FRAC * sync_round
+        asyn = make(AsyncRunner, deadline=deadline,
+                    buffer_size=clients // 2)
+        h_async = asyn.run(rounds_async)
+        wall = time.time() - t0
+        if not all(math.isfinite(r.train_loss) for r in h_sync + h_async):
+            fail(f"straggler U={clients}: a loss is not finite")
+        target = max(r.test_acc for r in
+                     h_sync[:max(1, 2 * rounds_sync // 3)])
+        t_sync, r_sync = _time_to_acc(h_sync, target)
+        t_async, r_async = _time_to_acc(h_async, target)
+        rows.append({
+            "clients": clients, "deadline_s": deadline,
+            "buffer_size": clients // 2, "target_acc": target,
+            "sync_time_s": t_sync, "async_time_s": t_async,
+            "sync_round": r_sync, "async_round": r_async,
+            "mean_admitted": float(np.mean(
+                [d["n_admitted"] for d in asyn.async_history])),
+            "ratio": (t_sync / t_async if math.isfinite(t_async)
+                      else 0.0),
+            "wall_s": wall})
+    log(f"[straggler] benchmarks/async_engine.py's regime (MLP, batch 4, "
+        f"CPU {STRAGGLER_CPU}, deadline {STRAGGLER_DEADLINE_FRAC} x the sync "
+        f"round, K = U/2, {rounds_sync} sync vs {rounds_async} async "
+        f"rounds, FedSGD), simulated seconds of the wireless model to the "
+        f"target accuracy: {json.dumps(rows)}")
+    return rows
+
+
 def serve_arch(name: str):
     from repro_torch.configs import get_arch
     return get_arch(name)
@@ -2907,6 +3274,9 @@ def main() -> None:
     sweep = phase_sweep()
     # the device control plane
     control = phase_control(profile_dir)
+    # the buffered-async engine
+    asy = phase_async()
+    phase_straggler()
     log(f"[done] {time.time() - t_start:.1f} s")
 
     def per_family(key):
@@ -2965,6 +3335,8 @@ def main() -> None:
         "sweep_bucket_launches_per_round": sweep["launches_per_round"],
         "sweep_bucket_lanes": sweep["lanes"],
         "sweep_bucket_vs_plain": sweep["quant_vs_plain"],
+        "async_launches_per_round": asy["launches_per_round"],
+        "async_sweep_launches_per_round": asy["sweep_launches_per_round"],
     }, block_row("block_norms", "norms", dc_launches["block_norms"],
                  norm_err, {}),
         block_row("apply_block_mask", "mask",

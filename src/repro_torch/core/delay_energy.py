@@ -8,11 +8,12 @@ numpy arithmetic, bitwise. Every function accepts a scalar
 any leading candidate axes. ``rate=`` lets one expected-rate quadrature
 serve both the delay and energy evaluations.
 
-The ``*_dev`` twins and ``round_accounting_dev`` (held against the
-reference's lines 103-164) evaluate the same formulas in float32 over a
+The ``*_dev`` twins, ``round_accounting_dev`` and the buffered-async
+engine's ``buffered_round_accounting_dev`` (held against the reference's
+lines 103-196) evaluate the same formulas in float32 over a
 ``ChannelArrays`` view on the device, for the scanned engine; they
 broadcast over a leading lane axis too, where the config's floats are
-(L, 1) tensors. The buffered-async accounting is not ported yet.
+(L, 1) tensors.
 """
 from __future__ import annotations
 
@@ -161,3 +162,44 @@ def round_accounting_dev(ltfl: LTFLConfig, ch: ChannelArrays,
     energy = torch.sum(device_round_energy_dev(
         cfg, ch, payload_bits, rho, power, rate=rate), dim=-1)
     return delay.squeeze(-1), energy
+
+
+def buffered_round_accounting_dev(
+        ltfl: LTFLConfig, ch: ChannelArrays, payload_bits: torch.Tensor,
+        rho: torch.Tensor, power: torch.Tensor, admitted: torch.Tensor,
+        deadline: float, buffer_size: int, *,
+        rate: Optional[torch.Tensor] = None,
+        t_u: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A buffered-async round's (delay, energy, per-device completion
+    times) on the device, over the last (device) axis.
+
+    The round closes when the K-slot buffer fills, at the K-th admitted
+    arrival's completion time, and otherwise at the straggler
+    ``deadline`` (or, under an infinite deadline, at the last scheduled
+    completion time); then the server delay. Energy is Eq. 37 summed:
+    stragglers and dropped uploads still spend theirs.
+
+    ``rate`` and ``t_u`` take the expected-rate quadrature and the
+    completion times when the caller already has them (the async
+    engine's admission computes both), so the quadrature runs once.
+    With ``admitted`` all True, ``buffer_size`` = U and ``deadline`` =
+    inf the result is ``round_accounting_dev``'s bitwise: the same ops
+    in the same order, and where(True, t, 0) is t."""
+    cfg = ltfl.wireless
+    if rate is None:
+        rate = expected_rate_dev(cfg, ch, power)
+    if t_u is None:
+        t_u = device_round_delay_dev(cfg, ch, payload_bits, rho, power,
+                                     rate=rate)
+    filled = torch.sum(admitted.to(torch.int32), dim=-1,
+                       keepdim=True) >= buffer_size
+    last = torch.amax(torch.where(admitted, t_u, 0.0), dim=-1,
+                      keepdim=True)
+    # the deadline as the reference holds it, a float32
+    cap = torch.clamp(torch.amax(t_u, dim=-1, keepdim=True),
+                      max=float(np.float32(deadline)))
+    delay = torch.where(filled, last, cap) + ltfl.server_delay
+    energy = torch.sum(device_round_energy_dev(
+        cfg, ch, payload_bits, rho, power, rate=rate), dim=-1)
+    return delay.squeeze(-1), energy, t_u

@@ -1,10 +1,13 @@
 """The federated round engine, held against ``repro.fed``: ``FedRunner``,
 the scanned engine (``ScanRunner``, ``make_scanned_step``, sweep lanes),
-the population layer's cohort samplers, LTFL and the paper's four
-baseline schemes."""
+the buffered-async engine (``AsyncRunner``, ``ChurnSpec``), the
+population layer's cohort samplers, LTFL and the paper's four baseline
+schemes."""
 
+from repro_torch.fed.async_engine import AsyncRunner
 from repro_torch.fed.population import (
     ChannelAwareSampler,
+    ChurnSpec,
     CohortSampler,
     EnergyAwareSampler,
     Population,
@@ -41,6 +44,8 @@ __all__ = [
     "FedRunner",
     "RoundRecord",
     "ScanRunner",
+    "AsyncRunner",
+    "ChurnSpec",
     "RoundLog",
     "LaneSpec",
     "SweepSpec",

@@ -25,8 +25,10 @@ equal.
 
 Each sampler's ``device_twin(runner)`` returns its in-segment scheduler
 (``repro_torch.control.device_samplers``) for ``ScanRunner(rng=
-"device")``. The sharded device registry (``sharded_twin``) and
-``ChurnSpec`` are not ported yet.
+"device")``. ``ChurnSpec`` (Bernoulli departures, returns and dropped
+uploads) is the buffered-async engine's fleet model
+(``repro_torch.fed.async_engine``). The sharded device registry
+(``sharded_twin``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -95,6 +97,35 @@ class Population:
     def view(self, idx: np.ndarray) -> ChannelState:
         """(U,) cohort view of the channel state (a gathered copy)."""
         return self.channel.take(idx)
+
+
+@dataclass(frozen=True)
+class ChurnSpec:
+    """Bernoulli device churn over the registry, for the async engine.
+
+    Each round, every alive device departs with probability ``p_depart``
+    and every departed device returns with probability ``p_return`` (a
+    two-state Markov chain over the (N,) registry, stationary alive
+    fraction p_return / (p_depart + p_return) when both are positive).
+    Independently, each scheduled upload is dropped mid-flight with
+    probability ``p_drop``: the device trained and transmitted, so its
+    energy is spent, but the update never arrives.
+
+    The async engine applies it as masks over the cohort: the registry,
+    the sampler and the channel state keep their shapes; a departed or
+    dropped device never arrives, so it misses the buffer and its
+    staleness keeps aging."""
+
+    p_depart: float = 0.0
+    p_return: float = 0.0
+    p_drop: float = 0.0
+
+    def __post_init__(self):
+        for name in ("p_depart", "p_return", "p_drop"):
+            v = getattr(self, name)
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(f"{name} must be a probability in "
+                                 f"[0, 1], got {v}")
 
 
 SelectResult = Tuple[np.ndarray, Optional[np.ndarray]]

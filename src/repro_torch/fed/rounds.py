@@ -1,7 +1,8 @@
 """The paper-scale federated round engine (edge mode).
 
-Held against ``repro.fed.rounds`` (``FedRunner``, ``RoundRecord``,
-``HostRoundInputs``, ``evaluate``). One round (Section 2, Eq. 8-10/14-20):
+Held against ``repro.fed.rounds`` (``FedRunner``, ``RoundRecord`` with
+its async ``staleness``, ``HostRoundInputs``, ``evaluate``). One round
+(Section 2, Eq. 8-10/14-20):
 
   1. the scheme supplies vectorized controls (rho_u, delta_u, p_u) — for
      LTFL via Algorithm 1 — and a compressor;
@@ -108,6 +109,9 @@ class RoundRecord:
     power_mean: float
     cohort: List[int] = field(default_factory=list)
     participation: float = 1.0
+    # buffered-async engine: the cohort's mean staleness tau (rounds
+    # since each member's last admitted update); 0 for synchronous rounds
+    staleness: float = 0.0
 
 
 class FedRunner:

@@ -77,9 +77,25 @@ one-lane bucket, so it runs the same arithmetic. ``torch.func.vmap``
 over the step is not an option: the quantizer is a ctypes call on a
 data pointer, which has no vmap rule.
 
-Not ported yet: the async engine's hooks (ROADMAP A6) and
-``population_sharding`` (the sharded registry, A7; asking for it
-raises).
+Buffered-async rounds
+---------------------
+``AsyncRunner`` (``repro_torch.fed.async_engine``) sets ``_async`` and
+provides ``_admission``, which the segment calls every round once the
+round's inputs are known (the replayed rows, or ``_device_round``'s
+draws) and before ``step.lanes``: it masks the cohort into the buffer's
+admissions over the bucket's (L, U) clients, so the masked packet
+outcomes and the staleness-attenuated weights feed the step, and its
+buffered (delay, energy) replace the synchronous accounting, the
+program's feedback included. The round's pre-reset staleness ``tau``
+and the ``admitted`` mask ride ``RoundLog``; ``_absorb_segment`` adds
+the staleness term to gamma (host float64) and reports the cohort's mean
+tau as ``RoundRecord.staleness``. ``_lane_extra_kwargs`` hands a lane
+its parent's deadline, buffer and churn, and ``_engine_signature`` keeps
+lanes of different async settings in different buckets. Without
+``_async`` none of this runs.
+
+Not ported yet: ``population_sharding`` (the sharded registry, ROADMAP
+A7; asking for it raises).
 """
 from __future__ import annotations
 
@@ -168,6 +184,8 @@ class RoundLog(NamedTuple):
     rho_mean: Any = None     # (R,) means of the round's controls
     delta_mean: Any = None   # (R,)
     power_mean: Any = None   # (R,)
+    tau: Any = None          # (R, U) pre-reset staleness (async only)
+    admitted: Any = None     # (R, U) buffer admissions (async only)
 
 
 def make_scanned_step(step_fn: Callable) -> Callable:
@@ -282,6 +300,9 @@ class ScanRunner(FedRunner):
     """
 
     segment_sync_debug: Optional[str] = None
+    # the buffered-async spec, set by AsyncRunner (which also provides
+    # ``_admission``); None runs synchronous rounds
+    _async: Optional[Any] = None
 
     def __init__(self, model, params, ltfl, train, test, scheme, *,
                  rng: str = "host", control: str = "host",
@@ -501,7 +522,8 @@ class ScanRunner(FedRunner):
             seeds.append(h.seed)
         xs = {k: np.stack([row[k] for row in rows]) for k in rows[0]}
         for k in xs:
-            if k not in ("cohort", "batch_idx"):
+            # indices stay int64 and masks bool; the rest is float32
+            if k not in ("cohort", "batch_idx") and xs[k].dtype != bool:
                 xs[k] = xs[k].astype(np.float32)
         return xs, self._segment_consts(ctl0, agg_denom), ctl0, seeds
 
@@ -565,10 +587,15 @@ class ScanRunner(FedRunner):
         incl = (np.asarray(log.inclusion, np.float64)
                 if log.inclusion is not None else None)
         denom = float(np.float32(self._pop_samples_total))
+        # async: the staleness term of Eq. 29 (exactly +0.0 at tau = 0)
+        taus = (np.asarray(log.tau, np.float64)
+                if log.tau is not None else None)
         gammas = [gamma(self.ltfl, rsqs[i], gds[i], rhos_u[i], perss[i],
                         nss[i], **({"inclusion": incl[i],
                                     "population_samples": denom}
-                                   if incl is not None else {}))
+                                   if incl is not None else {}),
+                        **({"staleness": taus[i]}
+                           if taus is not None else {}))
                   for i in range(b - a)]
         device_ctl = self.control == "device"
         if device_ctl:
@@ -610,6 +637,8 @@ class ScanRunner(FedRunner):
                             else float(np.mean(ctl.power))),
                 cohort=cohorts[i].tolist() if partial else [],
                 participation=self.cohort_size / self.population_size,
+                staleness=(float(np.mean(taus[i]))
+                           if taus is not None else 0.0),
             )
             self.history.append(rec)
             if not in_segment_feedback:
@@ -662,11 +691,25 @@ class ScanRunner(FedRunner):
     # ------------------------------------------------------------------ #
     # sweep lanes
     # ------------------------------------------------------------------ #
+    def _lane_extra_kwargs(self) -> Dict[str, Any]:
+        """Engine construction kwargs a lane inherits from its parent
+        (none here; ``AsyncRunner`` hands on its deadline, buffer and
+        churn)."""
+        return {}
+
+    def _engine_signature(self) -> tuple:
+        """What the engine bakes into a segment beyond the base
+        signature (nothing here; ``AsyncRunner`` adds its deadline,
+        buffer size and churn)."""
+        return ()
+
     def _build_lane(self, spec: LaneSpec) -> "ScanRunner":
         """A lane: the parent's construction inputs with the spec's
-        seed, scheme, config and kwargs applied."""
+        seed, scheme, config and kwargs applied; ``type(self)`` keeps an
+        ``AsyncRunner``'s lanes async."""
         c = self._ctor
         kw = dict(c["kwargs"])
+        kw.update(self._lane_extra_kwargs())
         if spec.kwargs:
             kw.update(spec.kwargs)
         kw["seed"] = int(spec.seed)
@@ -683,7 +726,8 @@ class ScanRunner(FedRunner):
         bucket iff their signatures match."""
         sig = (lane._scan_shape_signature(), lane.rng, lane.control,
                lane.max_segment, type(lane.sampler).__name__,
-               lane.scheme.scan_lane_signature(lane))
+               lane.scheme.scan_lane_signature(lane),
+               lane._engine_signature())
         if lane.rng == "device" and \
                 not isinstance(lane.sampler, UniformSampler):
             # the channel- and energy-aware twins close over config
@@ -841,6 +885,18 @@ def _segment_rounds(lanes, view, cfg, consts, xs, seeds, start, length,
              (rho, delta, power, payload)) = _device_round(
                 lanes, lane_views, fixed, r, decide)
             round_seeds = [lane._generator for lane in lanes]
+        accounting = None
+        if rep._async is not None:
+            # buffered admission masks the step's inputs; its accounting
+            # replaces the synchronous one below
+            masks = ((xs["alive_c"][i], xs["drop"][i])
+                     if xs is not None and "alive_c" in xs else None)
+            (alpha, weights, inclusion, tau, admitted,
+             accounting) = rep._admission(lanes, view, ch, cohort, alpha,
+                                          weights, inclusion, rho, power,
+                                          payload, masks)
+            cols["tau"].append(tau)
+            cols["admitted"].append(admitted)
         controls = []
         for j in range(n_lanes):
             c = {"rho": rho[j], "delta": delta[j], "weights": weights[j],
@@ -850,7 +906,11 @@ def _segment_rounds(lanes, view, cfg, consts, xs, seeds, start, length,
             controls.append(c)
         params, opt_states, comp_state, metrics = step.lanes(
             params, opt_states, comp_state, batch, controls, round_seeds)
-        delay, energy = round_accounting_dev(view, ch, payload, rho, power)
+        if accounting is None:
+            delay, energy = round_accounting_dev(view, ch, payload, rho,
+                                                 power)
+        else:
+            delay, energy = accounting
         if xs is None:
             # the carried (N,) range estimates; the program's feedback
             for j, lane in enumerate(lanes):

@@ -18,11 +18,13 @@ bakes into a segment, which ``run_sweep`` buckets lanes by) and
 ``scan_control_program`` (the ``repro_torch.control.ControlProgram``
 that ``ScanRunner(control="device")`` runs inside the segment: LTFL's
 per-round Algorithm 1 through ``solve_dev``, FedMP's UCB bandit on the
-device). The async engine's ``configure_async`` is not ported yet.
+device). ``configure_async`` is the buffered-async engine's hook
+(``repro_torch.fed.async_engine``): LTFL clamps Algorithm 1's host delay
+budget to the straggler deadline plus the server delay.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, Optional
 
 import numpy as np
@@ -105,6 +107,13 @@ class BaseScheme:
     def post_round(self, rnd: int, metrics: Dict[str, float]) -> None:
         pass
 
+    def configure_async(self, runner) -> None:
+        """Called once by ``AsyncRunner`` after ``setup``, to adapt the
+        scheme's control problem to buffered rounds. Default: nothing
+        (stateless schemes' controls do not depend on how a round
+        closes; FedMP's bandit learns from the logged delay, which under
+        the async engine is the buffered round's)."""
+
     def _full_bits(self, rho=0.0) -> np.ndarray:
         u = self.runner.num_devices
         return 32.0 * self.runner.num_params * (1.0 - np.asarray(rho)) \
@@ -138,6 +147,9 @@ class LTFLScheme(BaseScheme):
         self._decision: Optional[controller_mod.ControlDecision] = None
         self._solved_epoch: int = -1
         self._solved_cohort: int = -1
+        # Algorithm 1's T^max under a straggler deadline (None: the
+        # config's); set by configure_async
+        self._async_t_max: Optional[float] = None
         # how many rounds ran the device solve (the reference counts the
         # traces that embed it): hold rounds must not
         self._n_decide_solves: int = 0
@@ -161,9 +173,24 @@ class LTFLScheme(BaseScheme):
         return (type(self).__name__, self.scan_recontrol_every(runner),
                 self.uses_prune, self.use_quant, self.use_power)
 
+    def configure_async(self, runner) -> None:
+        """Clamp Algorithm 1's per-round delay budget to min(T^max,
+        deadline + server delay): a device that finishes after the
+        deadline misses the buffer, so delay beyond it buys nothing. An
+        infinite deadline leaves every solve as it was. As in the
+        reference, only the host solve reads the clamp; the device
+        program (``control="device"``) reads the laned ``t_max``."""
+        deadline = runner._async.deadline
+        if np.isfinite(deadline):
+            budget = deadline + runner.ltfl.server_delay
+            if budget < runner.ltfl.t_max:
+                self._async_t_max = float(budget)
+
     def _solve(self):
         r = self.runner
         ltfl = r.ltfl
+        if self._async_t_max is not None:
+            ltfl = replace(ltfl, t_max=self._async_t_max)
         ch = r.channel
         if not self.use_power:
             # fixed mid power, closed-form rho/delta only (one batched

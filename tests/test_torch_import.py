@@ -1,12 +1,12 @@
 """The port needs no jax and nothing of the reference package.
 
 A subprocess blocks jax (``sys.modules["jax"] = None``) and imports every
-module of ``repro_torch`` (the scanned engine, the device samplers and
-the checkpoints among them); no source file of the port, no
-``examples/torch_*.py`` script, nor ``chip_smoke.py``, has an import
+module of ``repro_torch`` (the scanned and async engines, the device
+samplers and the checkpoints among them); no source file of the port,
+no ``examples/torch_*.py`` script, nor ``chip_smoke.py``, has an import
 statement of ``jax`` or ``repro`` (docstrings that name a reference
-module are fine); and the port's sweep and controller examples run with
-both blocked.
+module are fine); and the port's sweep, controller and async-service
+examples run with both blocked.
 """
 import os
 import re
@@ -30,7 +30,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert "jax" not in {k for k, v in sys.modules.items() if v is not None}
-for name in ("repro_torch.fed.scan_engine", "repro_torch.checkpoint",
+for name in ("repro_torch.fed.scan_engine", "repro_torch.fed.async_engine",
+             "repro_torch.checkpoint",
              "repro_torch.control.device_samplers",
              "repro_torch.control.device_controller",
              "repro_torch.control.device_bayesopt",
@@ -52,7 +53,7 @@ def test_port_imports_without_jax():
 def test_no_jax_or_reference_import_statements():
     files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
              + sorted((ROOT / "examples").glob("torch_*.py")))
-    assert len(list((ROOT / "examples").glob("torch_*.py"))) == 4
+    assert len(list((ROOT / "examples").glob("torch_*.py"))) == 5
     assert len(files) > 20
     for f in files:
         hits = IMPORT_RE.findall(f.read_text())
@@ -93,6 +94,26 @@ def test_controller_demo_runs_without_jax_on_the_cpu():
     assert "solve_dev on cpu" in out.stdout
     assert out.stdout.count("within T_max") == 2
     assert "Gamma^n: host" in out.stdout
+
+
+def test_async_service_example_runs_without_jax_on_the_cpu():
+    probe = ("import runpy, sys; sys.modules['jax'] = None; "
+             "sys.modules['repro'] = None; sys.argv = sys.argv[1:]; "
+             "runpy.run_path(sys.argv[0], run_name='__main__')")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    env["OMP_NUM_THREADS"] = "1"
+    out = subprocess.run(
+        [sys.executable, "-c", probe,
+         str(ROOT / "examples" / "torch_serve_async.py"),
+         "--device", "cpu", "--clients", "2"], env=env,
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("service up on cpu: U=6")
+    clients = [l for l in out.stdout.splitlines()
+               if l.startswith("client ")]
+    assert len(clients) == 2 and "admitted/round [" in clients[0]
+    assert "engine has aggregated 7 rounds total" in out.stdout
 
 
 def _launcher(*args):
