@@ -144,9 +144,8 @@ Phases; any failure exits non-zero before the result lines:
    fixed 1e-2: 1.19e-2). Phases 19-20 must leave every
    ``LAUNCHES`` count as it was.
 
-21. the scanned engine at small size: ``control="device"`` with
-   ``rng="host"`` and ``population_sharding`` raise ValueErrors (the
-   latter naming ROADMAP A7);
+21. the scanned engine at small size: ``control="device"`` and
+   ``population_sharding`` with ``rng="host"`` raise ValueErrors;
    ``ScanRunner(rng="host")`` with the MLP (hidden 16) and U = 4, LTFL,
    6 rounds in segments of 3, on the card against the CPU with the same
    injected uniforms (cohorts,
@@ -247,6 +246,32 @@ Phases; any failure exits non-zero before the result lines:
    run reaches in its first 20 rounds), sync and async, and their ratio,
    reported, not gated.
 
+27. the registry in blocks (``population_sharding``) at N = 10^6
+   registered devices: (a) phase 22's width and model, U = 30,
+   ``ChannelAwareSampler``, block fading, ``rng="device"``, LTFL (its
+   cadence is 1 under partial participation, so ``control="device"``
+   solves in the segment), on meshes of 1 and 8 blocks all on the card,
+   under deterministic cuDNN: per S a cold start (construction and the
+   one upload) timed, 10 rounds as one segment under the sync check
+   with 32 quantizer launches a round counted from 0, then 5 more
+   timed; one registry upload across the two runs; S = 8 against S = 1
+   bitwise (cohorts, losses, host ``fading_mean``, ``fading_epoch``);
+   the gathered (U,) view and (U, W) rows equal ``index_select`` on the
+   concatenated blocks for the last cohort, a random one and the block
+   edges, and a planted fault (blocks past the first read the next
+   slot) fails that check; registry and index-table bytes a block, peak
+   memory; the unsharded device registry at the same N timed (another
+   semantics: all N redrawn each epoch). (c) ``AsyncRunner`` of phase
+   25 (b) (K = 15, phase 25's deadline, ``ChurnSpec(0.1, 0.5, 0.05)``)
+   on the S = 8 registry: a warm-up round, then 5 rounds sync-free and
+   timed, 32 launches a round,
+   phase 25's admission checks, its s a round against the sharded
+   ``ScanRunner``'s. (b) benchmarks/population_scale.py ``--sharded``'s
+   regime (ResNet width 8, pool 2048, batch 16, FedSGD, channel-aware,
+   block fading, U = 16) at N = 10^4, 10^5, 10^6 over 8 blocks: s a
+   round (min of 3 10-round runs) and the 10^6 / 10^4 ratio, reported,
+   not gated.
+
 ``--profile DIR`` also writes torch.profiler tables of one edge round
 (``DIR/profile_round.txt``), one datacenter step
 (``DIR/profile_step.txt``; phase 18's ``profile_step_<arch>.txt``), one
@@ -261,7 +286,9 @@ limit, and ``{"ok": true, "device": {...}}``. The ``stochastic_quant``
 row also carries the scanned engine's launches a round by rng mode and
 under device control (``control_launches_per_round``), the async
 engine's by mode (``async_launches_per_round``) and for its sweep bucket
-(``async_sweep_launches_per_round``), the
+(``async_sweep_launches_per_round``), on the registry in blocks
+(``sharded_launches_per_round``, ``sharded_async_launches_per_round``),
+the
 sweep bucket's launches a round for its lanes and its check against the
 plain version at the bucket's rows (``max_abs_err`` is the larger of
 phase 3's and that check's float32 error). The
@@ -1934,11 +1961,11 @@ def phase_scan_small() -> None:
         return [torch.rand((nc,) + tuple(s), generator=g) for s in shapes]
 
     kw = dict(batch_size=8, seed=0, eval_every=0)
-    # device control without the device rng stream refuses, as the
-    # reference's does; the sharded registry is not ported yet and
-    # refuses naming its ROADMAP item
+    # device control and the registry in blocks without the device rng
+    # stream refuse, as the reference's do
     for bad, item in ((dict(control="device", rng="host"), "rng='device'"),
-                      (dict(population_sharding=2, rng="device"), "A7")):
+                      (dict(population_sharding=2, rng="host"),
+                       "rng='device'")):
         try:
             ScanRunner(model, params, ltfl, train, test,
                        ALL_SCHEMES["ltfl"](), device="cuda", **bad, **kw)
@@ -1948,8 +1975,8 @@ def phase_scan_small() -> None:
                      f"{err}")
         else:
             fail(f"ScanRunner({bad}) did not raise")
-    log("[scan] control='device' with rng='host' and population_sharding "
-        "raise ValueErrors on the card (the latter naming A7)")
+    log("[scan] control='device' and population_sharding with "
+        "rng='host' raise ValueErrors on the card")
     hists = {}
     for dev in ("cpu", "cuda"):
         runner = ScanRunner(model, params, ltfl, train, test,
@@ -3188,6 +3215,289 @@ def phase_straggler():
     return rows
 
 
+REGISTRY_N = 1_000_000                  # population_scale.py --sharded's top N
+REGISTRY_SHARDS = 8
+REGISTRY_ROUNDS = 10                    # the checked first run, S = 1 and 8
+REGISTRY_STEADY = 5                     # the timed second run
+REGISTRY_ASYNC_ROUNDS = 5
+REGISTRY_MLP_N = (10_000, 100_000, 1_000_000)
+REGISTRY_MLP_U = 16
+REGISTRY_MLP_ROUNDS = 10
+
+
+def _gather_fault(runner, cohorts):
+    """The first place where the cohort's gathered (U,) view or (U, W)
+    rows differ from ``index_select`` on the concatenated blocks, or
+    None."""
+    import torch
+    from repro_torch.core.channel import ChannelArrays
+    from repro_torch.fed.population import gather_cohort_dev, \
+        gather_parts_dev
+    mesh, pop = runner._pop_mesh, runner._pop_dev
+    table = torch.cat(runner._parts_padded)
+    sizes = torch.cat(runner._part_sizes)
+    try:
+        for cohort in cohorts:
+            view = gather_cohort_dev(mesh, pop.channel, cohort, runner.device)
+            for f, got in zip(ChannelArrays._fields, view):
+                whole = torch.cat([getattr(c, f) for c in pop.channel])
+                if not torch.equal(got, torch.index_select(whole, 0,
+                                                           cohort)):
+                    return f"{f} at cohort {cohort.tolist()}"
+            rows, sz = gather_parts_dev(mesh, runner._parts_padded,
+                                        runner._part_sizes, cohort,
+                                        runner.device)
+            if not torch.equal(rows, torch.index_select(table, 0, cohort)):
+                return f"index rows at cohort {cohort.tolist()}"
+            if not torch.equal(sz, torch.index_select(sizes, 0, cohort)):
+                return f"sizes at cohort {cohort.tolist()}"
+    finally:
+        del table, sizes
+    return None
+
+
+def phase_registry(deadline: float):
+    """Phase 27: the registry in blocks (population_sharding) at N = 10^6:
+    (a) the paper's width at S = 1 and S = 8 on one card against each
+    other and the unsharded device registry; (b) the reference's sharded
+    MLP regime over N; (c) AsyncRunner on the S = 8 registry."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import LTFLConfig, ResNetConfig
+    from repro_torch.fed import AsyncRunner, ChannelAwareSampler, ChurnSpec, \
+        FedSGDScheme, LTFLScheme, ScanRunner
+    from repro_torch.fed import population as pop_mod
+    from repro_torch.kernels.stochastic_quant import LAUNCHES
+    from repro_torch.launch.sharding import population_mesh
+    from repro_torch.models import ResNet
+
+    train, test = edge_world(20000, 2000)
+    model = ResNet(ResNetConfig())
+    n_leaves = len(model.param_specs())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen)
+    base = LTFLConfig()
+    u = base.num_devices
+    meshes = {s: population_mesh(devices=["cuda:0"] * s)
+              for s in (1, REGISTRY_SHARDS)}
+    out = {"population": REGISTRY_N, "cohort": u, "shards": REGISTRY_SHARDS,
+           "round_s": {}, "cold_start_s": {}, "max_memory_allocated": {}}
+
+    def make(cls, sharding, **kw):
+        # a cohort drawn anew every round makes LTFL re-solve every round
+        # (its scan_recontrol_every is 1 under partial participation), so
+        # the solve runs in the segment: control="device"
+        t = time.time()
+        runner = cls(model, params, base, train, test,
+                     LTFLScheme(recontrol_every=SCAN_ROUNDS), batch_size=50,
+                     seed=0, eval_every=0, device="cuda", rng="device",
+                     control="device", block_fading=True,
+                     population_size=REGISTRY_N, cohort_size=u,
+                     cohort_sampler=ChannelAwareSampler(),
+                     population_sharding=sharding, **kw)
+        ctor = time.time() - t
+        upload = _timed(runner._ensure_device_world)
+        return runner, ctor + upload
+
+    def release():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # (a) S = 1 and S = 8: a checked 10-round run, then a timed one
+    runs = {}
+    with deterministic_cudnn():
+        for s in (1, REGISTRY_SHARDS):
+            release()
+            runner, cold = make(ScanRunner, meshes[s])
+            uploads = runner._n_pop_uploads
+            LAUNCHES["stochastic_quant"] = 0
+            hist = list(_sync_free_run(runner, REGISTRY_ROUNDS,
+                                       f"registry S={s}"))
+            launched = LAUNCHES["stochastic_quant"]
+            if launched != REGISTRY_ROUNDS * n_leaves:
+                fail(f"registry S={s}: {launched} quantizer launches in "
+                     f"{REGISTRY_ROUNDS} rounds, want {n_leaves} a round")
+            if not all(math.isfinite(r.train_loss) for r in hist):
+                fail(f"registry S={s}: losses {[r.train_loss for r in hist]}")
+            steady = _timed(lambda: _sync_free_run(
+                runner, REGISTRY_STEADY, f"registry S={s}"))
+            if runner._n_pop_uploads != uploads or uploads != 1:
+                fail(f"registry S={s}: {runner._n_pop_uploads} registry "
+                     f"uploads after two runs (1 after set-up: {uploads})")
+            pop = runner.population
+            key = f"sharded_{s}"
+            out["round_s"][key] = steady / REGISTRY_STEADY
+            out["cold_start_s"][key] = cold
+            out["max_memory_allocated"][key] = \
+                torch.cuda.max_memory_allocated()
+            if s == REGISTRY_SHARDS:
+                out["launches_per_round"] = launched // REGISTRY_ROUNDS
+                out["registry_bytes_per_block"] = [
+                    sum(t.nbytes for t in ch) + fe.nbytes
+                    for ch, fe in zip(runner._pop_dev.channel,
+                                      runner._pop_dev.fading_epoch)]
+                out["parts_bytes_per_block"] = [
+                    t.nbytes + z.nbytes for t, z in zip(
+                        runner._parts_padded, runner._part_sizes)]
+                # the gathers against index_select on the whole registry:
+                # the last cohort, one across every block, the edges
+                cpu = torch.Generator()
+                cpu.manual_seed(1)
+                blk = REGISTRY_N // REGISTRY_SHARDS
+                cohorts = [torch.tensor(hist[-1].cohort),
+                           torch.sort(torch.randperm(
+                               REGISTRY_N, generator=cpu)[:u]).values,
+                           torch.tensor([0, blk - 1, blk, REGISTRY_N - 1])]
+                cohorts = [c.to("cuda") for c in cohorts]
+                bad = _gather_fault(runner, cohorts)
+                if bad is not None:
+                    fail(f"registry S={s}: gathered {bad} differs from "
+                         "index_select on the concatenated blocks")
+                # a planted fault (every block past the first reads the
+                # next slot) must fail that check
+                real = pop_mod._block_slots
+
+                def shifted(cohort, mesh, blk, device):
+                    return [sl._replace(slot=torch.clamp(
+                        sl.slot + int(i > 0), max=blk - 1))
+                        for i, sl in enumerate(real(cohort, mesh, blk,
+                                                    device))]
+                pop_mod._block_slots = shifted
+                try:
+                    planted = _gather_fault(runner, cohorts)
+                finally:
+                    pop_mod._block_slots = real
+                if planted is None:
+                    fail("registry: a planted fault in the block slots "
+                         "passed the gather check")
+                out["planted_fault_caught"] = planted
+                del cohorts
+            runs[s] = ([r.cohort for r in hist],
+                       [r.train_loss for r in hist],
+                       pop.channel.fading_mean.copy(),
+                       pop.fading_epoch.copy(), pop.epoch)
+            log(f"[registry] paper width S={s} at N={REGISTRY_N}: "
+                f"{REGISTRY_ROUNDS} rounds in one sync-free segment, "
+                f"quantizer launches {launched} "
+                f"({launched // REGISTRY_ROUNDS} a round), registry "
+                f"uploads {runner._n_pop_uploads} after 2 runs, losses "
+                f"{[r.train_loss for r in hist]}, steady s a round "
+                f"{steady / REGISTRY_STEADY!r}, cold start {cold!r} s, "
+                f"max_memory_allocated="
+                f"{out['max_memory_allocated'][key]} bytes")
+            del runner, hist, pop
+        (c1, l1, f1, e1, ep1), (c8, l8, f8, e8, ep8) = \
+            runs[1], runs[REGISTRY_SHARDS]
+        if c8 != c1:
+            fail(f"registry: S=8 cohorts differ from S=1's: {c8} vs {c1}")
+        if l8 != l1:
+            fail(f"registry: S=8 losses {l8} vs S=1's {l1}")
+        if not (np.array_equal(f8, f1) and np.array_equal(e8, e1)
+                and ep8 == ep1):
+            fail("registry: S=8 host fading or fading epochs differ "
+                 "from S=1's")
+        touched = int(np.count_nonzero(e8))
+        out["devices_refreshed"] = touched
+        out["s8_equals_s1"] = True
+        log(f"[registry] S=8 equals S=1 bitwise over {REGISTRY_ROUNDS} rounds "
+            f"(cohorts, losses, host fading_mean, fading_epoch: {touched} "
+            f"devices refreshed, epoch {ep8}); gathered view and rows equal "
+            f"index_select on the concatenated blocks; the planted fault "
+            f"fails the check ({out['planted_fault_caught']}); bytes a block: "
+            f"registry {out['registry_bytes_per_block'][0]}, index table "
+            f"{out['parts_bytes_per_block'][0]}")
+        # the unsharded device registry at the same N (another semantics:
+        # all N redrawn each epoch; a time only)
+        release()
+        runner, cold = make(ScanRunner, None)
+        _sync_free_run(runner, 2, "registry unsharded")
+        out["round_s"]["unsharded"] = _timed(lambda: _sync_free_run(
+            runner, REGISTRY_STEADY, "registry unsharded")) / REGISTRY_STEADY
+        out["cold_start_s"]["unsharded"] = cold
+        out["max_memory_allocated"]["unsharded"] = \
+            torch.cuda.max_memory_allocated()
+        del runner
+        log(f"[registry] paper width at N={REGISTRY_N}, steady s a round: "
+            f"{out['round_s']}; cold start s: {out['cold_start_s']}")
+
+        # (c) AsyncRunner on the S = 8 registry
+        release()
+        asy, cold = make(AsyncRunner, meshes[REGISTRY_SHARDS],
+                         deadline=deadline, buffer_size=ASYNC_BUFFER,
+                         churn=ChurnSpec(**ASYNC_CHURN))
+        # a round to warm up, as the ScanRunners' timed runs were second
+        _sync_free_run(asy, 1, "registry async")
+        LAUNCHES["stochastic_quant"] = 0
+        t = _timed(lambda: _sync_free_run(asy, REGISTRY_ASYNC_ROUNDS,
+                                          "registry async"))
+        launched = LAUNCHES["stochastic_quant"]
+        if launched != REGISTRY_ASYNC_ROUNDS * n_leaves:
+            fail(f"registry async: {launched} quantizer launches in "
+                 f"{REGISTRY_ASYNC_ROUNDS} rounds, want {n_leaves} a round")
+        row = _async_checks(asy, list(asy.history), ASYNC_BUFFER,
+                            "registry async")
+        out["async"] = {"round_s": t / REGISTRY_ASYNC_ROUNDS,
+                        "vs_sharded_scan": (t / REGISTRY_ASYNC_ROUNDS)
+                        / out["round_s"][f"sharded_{REGISTRY_SHARDS}"],
+                        "cold_start_s": cold, "n_admitted": row["n_admitted"],
+                        "max_memory_allocated":
+                            torch.cuda.max_memory_allocated()}
+        out["async_launches_per_round"] = launched // REGISTRY_ASYNC_ROUNDS
+        del asy
+        log(f"[registry] AsyncRunner (K = {ASYNC_BUFFER}, deadline "
+            f"{deadline!r} "
+            f"s, churn {ASYNC_CHURN}) on the S={REGISTRY_SHARDS} registry: "
+            f"{REGISTRY_ASYNC_ROUNDS} rounds sync-free, quantizer launches "
+            f"{launched}, n_admitted {row['n_admitted']}, received "
+            f"{row['received']}, s a round {t / REGISTRY_ASYNC_ROUNDS!r} "
+            f"({out['async']['vs_sharded_scan']!r} x the sharded "
+            f"ScanRunner's)")
+
+    # (b) benchmarks/population_scale.py --sharded's regime
+    release()
+    mlp_train, mlp_test = edge_world(2048, 256)
+    width = 8
+    small = ResNet(ResNetConfig(stem_channels=width, group_channels=(
+        width, width * 2, width * 2, width * 4)))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    small_params = small.init(gen)
+    ltfl = LTFLConfig(num_devices=REGISTRY_MLP_U, samples_min=40,
+                      samples_max=60, learning_rate=0.15)
+    rows = []
+    for n in REGISTRY_MLP_N:
+        t0 = time.time()
+        r = ScanRunner(small, small_params, ltfl, mlp_train, mlp_test,
+                       FedSGDScheme(), batch_size=16, seed=0, eval_every=0,
+                       device="cuda", population_size=n,
+                       cohort_size=REGISTRY_MLP_U,
+                       cohort_sampler=ChannelAwareSampler(), rng="device",
+                       population_sharding=meshes[REGISTRY_SHARDS],
+                       block_fading=True)
+        r._ensure_device_world()
+        cold = time.time() - t0
+        _sync_free_run(r, 2, f"registry mlp N={n}")
+        per = min(_timed(lambda: r.run(REGISTRY_MLP_ROUNDS))
+                  for _ in range(3)) / REGISTRY_MLP_ROUNDS
+        rows.append({"population": n, "s_per_round": per,
+                     "cold_start_s": cold})
+        del r
+    out["mlp"] = {"rows": rows, "ratio_maxN_over_minN":
+                  rows[-1]["s_per_round"] / rows[0]["s_per_round"]}
+    log(f"[registry] population_scale.py --sharded regime (ResNet width 8, "
+        f"pool 2048, batch 16, FedSGD, U = {REGISTRY_MLP_U}, S = "
+        f"{REGISTRY_SHARDS}, {REGISTRY_MLP_ROUNDS}-round runs, min of 3): "
+        f"{json.dumps(rows)}, N=10^6 / 10^4 "
+        f"{out['mlp']['ratio_maxN_over_minN']!r}")
+    release()
+    log(f"[registry] {json.dumps(out)}")
+    return out
+
+
 def serve_arch(name: str):
     from repro_torch.configs import get_arch
     return get_arch(name)
@@ -3216,6 +3526,10 @@ def main() -> None:
         f"device {torch.cuda.get_device_name(0)} count "
         f"{torch.cuda.device_count()}")
 
+    def stamp(phases):
+        log(f"[time] phase(s) {phases} done at "
+            f"{time.time() - t_start:.1f} s")
+
     phase_build()
     shapes = leaf_shapes()
     if len(shapes) != 32:
@@ -3224,6 +3538,7 @@ def main() -> None:
     phase_small_reference()
     launches = phase_main_path(profile_dir)
     t = phase_timing(shapes)
+    stamp("1-6")
     mats = dc_matrices()
     if len(mats) != 9:
         fail(f"full-width granite-8b has {len(mats)} tileable leaves, "
@@ -3232,10 +3547,12 @@ def main() -> None:
     phase_small_datacenter()
     dc_launches, _, _ = phase_datacenter(profile_dir)
     bt = phase_block_timing(mats)
+    stamp("7-10")
     bsmm_err_small, bsmm_err, bsmm_launches, bsmm_other, bsmm_checks = \
         phase_bsmm_vs_plain()
     phase_baselines()
     st = phase_bsmm_timing()
+    stamp("11-13")
     before = all_launches()
     phase_serve_small()
     serve_rows = phase_serve_full("granite-8b", SERVE_B, SERVE_B_CHECK,
@@ -3250,6 +3567,7 @@ def main() -> None:
         fail(f"the serving phases launched hand-written kernels: "
              f"{before} -> {all_launches()}")
     log(f"[serve] kernel launches unchanged by phases 14-16: {before}")
+    stamp("14-16")
     # the datacenter step of the MoE, SSM, hybrid and encoder-decoder
     # families: small on the card against the CPU, then at published widths
     for name in DC_FAMILIES:
@@ -3258,6 +3576,7 @@ def main() -> None:
     for name, (cut, n_want, want) in DC_FAMILIES.items():
         total, _, _ = phase_datacenter(profile_dir, name, cut, want, n_want)
         family_launches[name] = total
+    stamp("17-18")
     before = all_launches()
     phase_serve_small(tuple(SERVE_D))
     for name, runs in SERVE_D.items():
@@ -3268,15 +3587,22 @@ def main() -> None:
              f"{before} -> {all_launches()}")
     log(f"[serve] kernel launches unchanged by phases 19-20: {before}")
     log(f"[serve] summary {json.dumps(serve_rows)}")
+    stamp("19-20")
     # the scanned engine and sweep lanes
     phase_scan_small()
     scan = phase_scan_main(profile_dir)
     sweep = phase_sweep()
+    stamp("21-23")
     # the device control plane
     control = phase_control(profile_dir)
+    stamp("24")
     # the buffered-async engine
     asy = phase_async()
     phase_straggler()
+    stamp("25-26")
+    # the registry in blocks at N = 10^6
+    registry = phase_registry(asy["deadline_s"])
+    stamp("27")
     log(f"[done] {time.time() - t_start:.1f} s")
 
     def per_family(key):
@@ -3337,6 +3663,9 @@ def main() -> None:
         "sweep_bucket_vs_plain": sweep["quant_vs_plain"],
         "async_launches_per_round": asy["launches_per_round"],
         "async_sweep_launches_per_round": asy["sweep_launches_per_round"],
+        "sharded_launches_per_round": registry["launches_per_round"],
+        "sharded_async_launches_per_round":
+            registry["async_launches_per_round"],
     }, block_row("block_norms", "norms", dc_launches["block_norms"],
                  norm_err, {}),
         block_row("apply_block_mask", "mask",

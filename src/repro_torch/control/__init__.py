@@ -11,7 +11,8 @@ and evaluates every round without leaving the segment:
 * ``device_controller``: Theorems 2/3 in closed form, the batched
   Gamma/feasibility evaluation and the whole Algorithm-1 alternation
   (``solve_dev``);
-* ``device_samplers``: the cohort schedulers' twins;
+* ``device_samplers``: the cohort schedulers' twins, and their sharded
+  twins over a registry in blocks;
 * ``program``: the ``ControlProgram`` a scheme returns from
   ``scan_control_program`` to run its control loop inside the segment.
 """
@@ -32,6 +33,9 @@ from repro_torch.control.device_samplers import (
     DeviceSamplerTwin,
     channel_aware_twin,
     energy_aware_twin,
+    sharded_channel_aware_twin,
+    sharded_energy_aware_twin,
+    sharded_uniform_twin,
     uniform_twin,
 )
 from repro_torch.control.program import ControlProgram, DeviceControls
@@ -49,6 +53,9 @@ __all__ = [
     "uniform_twin",
     "channel_aware_twin",
     "energy_aware_twin",
+    "sharded_uniform_twin",
+    "sharded_channel_aware_twin",
+    "sharded_energy_aware_twin",
     "ControlProgram",
     "DeviceControls",
 ]

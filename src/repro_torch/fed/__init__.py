@@ -1,8 +1,9 @@
 """The federated round engine, held against ``repro.fed``: ``FedRunner``,
 the scanned engine (``ScanRunner``, ``make_scanned_step``, sweep lanes),
 the buffered-async engine (``AsyncRunner``, ``ChurnSpec``), the
-population layer's cohort samplers, LTFL and the paper's four baseline
-schemes."""
+population layer's cohort samplers and its device registry in blocks
+(``PopulationArrays``, ``device_population``), LTFL and the paper's
+four baseline schemes."""
 
 from repro_torch.fed.async_engine import AsyncRunner
 from repro_torch.fed.population import (
@@ -11,7 +12,9 @@ from repro_torch.fed.population import (
     CohortSampler,
     EnergyAwareSampler,
     Population,
+    PopulationArrays,
     UniformSampler,
+    device_population,
     gumbel_topk_inclusion,
 )
 from repro_torch.fed.rounds import FedRunner, RoundRecord, resolve_device
@@ -52,6 +55,8 @@ __all__ = [
     "make_scanned_step",
     "resolve_device",
     "Population",
+    "PopulationArrays",
+    "device_population",
     "CohortSampler",
     "UniformSampler",
     "ChannelAwareSampler",

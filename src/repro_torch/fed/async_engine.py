@@ -36,7 +36,10 @@ The reference keeps tau (and the alive chain) in its scan carry; here
 each lane keeps them on the device across segments, as the scanned
 engine keeps the range estimates: ``_tau_dev`` (N,) float32, and
 ``_alive_dev`` (N,) bool when churn is drawn on the device. A bucket of
-lanes is admitted as one (L, U) batch.
+lanes is admitted as one (L, U) batch. ``AsyncRunner(...,
+population_sharding=S)`` runs on the registry in blocks: tau and the
+alive chain stay whole on the runner's device (the reference keeps them
+replicated) and admission reads the cohort's gathered (U,) view.
 
 Random streams. Under ``rng="host"`` churn draws on its own numpy
 stream, ``default_rng(seed + 0x5EED)``, in the reference's order (per

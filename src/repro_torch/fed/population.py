@@ -27,26 +27,63 @@ Each sampler's ``device_twin(runner)`` returns its in-segment scheduler
 (``repro_torch.control.device_samplers``) for ``ScanRunner(rng=
 "device")``. ``ChurnSpec`` (Bernoulli departures, returns and dropped
 uploads) is the buffered-async engine's fleet model
-(``repro_torch.fed.async_engine``). The sharded device registry
-(``sharded_twin``) is not ported yet.
+(``repro_torch.fed.async_engine``).
+
+The device registry in blocks (the million-device registry)
+-----------------------------------------------------------
+Held against the reference's lines 177-321 and its samplers'
+``sharded_twin`` (:392, :429, :475, :610). ``PopulationArrays`` holds the
+registry on the devices of a ``PopMesh`` (``repro_torch.launch.
+sharding``): the (N_pad,) ``ChannelArrays`` leaves and the per-device
+fading epochs in S equal blocks, each on its block's device, and the
+population epoch. N_pad pads N to S equal blocks with copies of device
+0, which every sharded draw masks out. One controller (the runner)
+drives all blocks; per round:
+
+* the cohort draw is two-stage (the samplers' ``sharded_twin``;
+  ``repro_torch.control.device_samplers``): O(N/S) per block and an
+  O(S U) merge;
+* ``refresh_cohort_dev`` writes O(U) fresh block-fading values into
+  each block, only for the scheduled members whose realization predates
+  the epoch: the host ``Population``'s lazy refresh, never an O(N)
+  redraw;
+* ``gather_cohort_dev`` and ``gather_parts_dev`` assemble the cohort's
+  (U,) channel view and (U, W) data-index rows on the controller's
+  device: each block reads its members and the owning block's row is
+  kept, equal to ``take`` / ``index_select`` on the unsplit registry
+  bit for bit.
+
+``host_sync`` folds the blocks back into the host ``Population`` once per
+``run``: the fading, the interference and each device's own fading
+epoch.
 """
 from __future__ import annotations
 
 import weakref
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import LTFLConfig, WirelessConfig
 from repro_torch.control.device_samplers import (
     DeviceSamplerTwin,
+    _block_gather,
+    _block_slots,
+    _drop_scatter_,
     channel_aware_twin,
     energy_aware_twin,
+    sharded_channel_aware_twin,
+    sharded_energy_aware_twin,
+    sharded_uniform_twin,
     uniform_twin,
 )
-from repro_torch.core.channel import ChannelState, expected_rate
+from repro_torch.core.channel import (ChannelArrays, ChannelState,
+                                      draw_fading_dev, expected_rate)
 from repro_torch.core.delay_energy import local_train_energy
+from repro_torch.launch.sharding import (PopMesh, population_blocks,
+                                         population_pad)
 
 
 @dataclass
@@ -99,6 +136,119 @@ class Population:
         return self.channel.take(idx)
 
 
+class PopulationArrays(NamedTuple):
+    """The device registry of ``Population`` in S blocks: ``channel`` is S
+    ``ChannelArrays`` of (N_pad / S,) float leaves and ``fading_epoch`` S
+    (N_pad / S,) int32 tensors, block s on the mesh's device s; ``epoch``
+    is the population epoch (a host int: the engine bumps it once per
+    block-fading round, so no device value is read for it). Indices
+    [N, N_pad) are copies of device 0 that no cohort contains."""
+
+    channel: Tuple[ChannelArrays, ...]
+    fading_epoch: Tuple[torch.Tensor, ...]
+    epoch: int
+
+
+def device_population(population: Population, mesh: PopMesh,
+                      dtype: torch.dtype = torch.float32
+                      ) -> PopulationArrays:
+    """Upload a host ``Population`` in equal blocks over the mesh, padded
+    with copies of device 0, floats in ``dtype``. One upload per run."""
+    n = population.num_devices
+    n_pad = population_pad(n, mesh)
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+
+    def blocks(x, out_dtype):
+        a = np.asarray(x)
+        if n_pad > n:
+            a = np.concatenate([a, np.broadcast_to(a[0], (n_pad - n,))])
+        return population_blocks(a.astype(out_dtype, copy=False), mesh)
+
+    ch = population.channel
+    leaves = [blocks(f, np_dtype) for f in (
+        ch.distance, ch.fading_mean, ch.interference, ch.cpu_hz,
+        ch.num_samples)]
+    return PopulationArrays(
+        channel=tuple(ChannelArrays(*fs) for fs in zip(*leaves)),
+        fading_epoch=tuple(blocks(population.fading_epoch, np.int32)),
+        epoch=int(population.epoch))
+
+
+def _block_size(pop: PopulationArrays) -> int:
+    return pop.fading_epoch[0].shape[0]
+
+
+def refresh_cohort_dev(cfg: WirelessConfig, mesh: PopMesh,
+                       pop: PopulationArrays, cohort: torch.Tensor,
+                       generator: Optional[torch.Generator] = None,
+                       fresh: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                       = None) -> PopulationArrays:
+    """The lazy block-fading refresh (the device twin of
+    ``Population.refresh_fading``): U fresh (fading, interference) values,
+    drawn from ``generator`` (``draw_fading_dev``) or given as ``fresh``,
+    land in the blocks for the scheduled members whose realization
+    predates ``pop.epoch``, and those members' epochs become
+    ``pop.epoch``. Each block translates the (U,) cohort to block-local
+    slots and drop-scatters its own members in place: O(U) a block, the
+    leaves stay where they are. Returns ``pop``."""
+    if fresh is None:
+        fresh = draw_fading_dev(cfg, generator, cohort.shape[0])
+    new_f, new_i = fresh
+    blk = _block_size(pop)
+    for ch, fe, sl in zip(pop.channel, pop.fading_epoch,
+                          _block_slots(cohort, mesh, blk, cohort.device)):
+        dev = fe.device
+        stale = torch.index_select(fe, 0, sl.slot) < pop.epoch
+        _drop_scatter_(
+            (ch.fading_mean, ch.interference, fe), sl, sl.own & stale,
+            (new_f.to(dev, ch.fading_mean.dtype),
+             new_i.to(dev, ch.interference.dtype), pop.epoch))
+    return pop
+
+
+def gather_cohort_dev(mesh: PopMesh, channel: Sequence[ChannelArrays],
+                      cohort: torch.Tensor, device=None) -> ChannelArrays:
+    """The (U,) cohort view out of the blocks, on ``device`` (default:
+    the cohort's): the sharded twin of ``ChannelArrays.take``, equal to
+    it bit for bit. O(U) a block; no block is copied whole."""
+    device = cohort.device if device is None else torch.device(device)
+    blk = channel[0].distance.shape[0]
+    slots = _block_slots(cohort, mesh, blk, device)
+    return ChannelArrays(*(
+        _block_gather([getattr(c, f) for c in channel], slots, device)
+        for f in ChannelArrays._fields))
+
+
+def gather_parts_dev(mesh: PopMesh, table: Sequence[torch.Tensor],
+                     sizes: Sequence[torch.Tensor], cohort: torch.Tensor,
+                     device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cohort's (U, W) data-index rows and (U,) shard sizes out of
+    the per-device index table in blocks (S (N_pad / S, W) int32 blocks
+    and S matching size blocks), on ``device``: equal to ``index_select``
+    on the unsplit table bit for bit, O(U W) a block."""
+    device = cohort.device if device is None else torch.device(device)
+    slots = _block_slots(cohort, mesh, table[0].shape[0], device)
+    return (_block_gather(table, slots, device),
+            _block_gather(sizes, slots, device))
+
+
+def host_sync(population: Population, pop: PopulationArrays) -> None:
+    """Fold the device registry back into the host ``Population`` (one
+    (N,) download a leaf, once per ``run``): the realized fading and
+    interference, each device's own fading epoch, the population
+    epoch."""
+    n = population.num_devices
+
+    def host(blocks):
+        return torch.cat([b.cpu() for b in blocks]).numpy()[:n]
+
+    ch = population.channel
+    ch.fading_mean[:] = host([c.fading_mean for c in pop.channel])
+    ch.interference[:] = host([c.interference for c in pop.channel])
+    population.fading_epoch[:] = host(pop.fading_epoch)
+    population.epoch = int(pop.epoch)
+
+
 @dataclass(frozen=True)
 class ChurnSpec:
     """Bernoulli device churn over the registry, for the async engine.
@@ -148,6 +298,16 @@ class CohortSampler:
         None for a host-only scheduler (the engine then raises)."""
         return None
 
+    def sharded_twin(self, runner, mesh: PopMesh
+                     ) -> Optional[DeviceSamplerTwin]:
+        """The two-stage scheduler over a registry in blocks
+        (``ScanRunner(population_sharding=...)``; ``select(blocks,
+        generator)``), or None when this scheduler has none (the engine
+        then raises). Its draws come from per-block generators seeded
+        from ``runner.seed``; the energy-aware one reports first-order
+        inclusion probabilities."""
+        return None
+
 
 @dataclass
 class UniformSampler(CohortSampler):
@@ -162,6 +322,11 @@ class UniformSampler(CohortSampler):
 
     def device_twin(self, runner) -> DeviceSamplerTwin:
         return uniform_twin(runner.population_size, runner.cohort_size)
+
+    def sharded_twin(self, runner, mesh: PopMesh) -> DeviceSamplerTwin:
+        return sharded_uniform_twin(runner.population_size,
+                                    runner.cohort_size, mesh,
+                                    seed=runner.seed, device=runner.device)
 
 
 @dataclass
@@ -200,6 +365,12 @@ class ChannelAwareSampler(CohortSampler):
         return channel_aware_twin(runner.population_size,
                                   runner.cohort_size, runner.ltfl,
                                   power=self.power, explore=self.explore)
+
+    def sharded_twin(self, runner, mesh: PopMesh) -> DeviceSamplerTwin:
+        return sharded_channel_aware_twin(
+            runner.population_size, runner.cohort_size, runner.ltfl, mesh,
+            power=self.power, explore=self.explore, seed=runner.seed,
+            device=runner.device)
 
 
 def gumbel_topk_inclusion(w, k: int, n_quad: int = 64) -> np.ndarray:
@@ -310,3 +481,9 @@ class EnergyAwareSampler(CohortSampler):
         # population
         return energy_aware_twin(runner.ltfl, runner.cohort_size,
                                  min_headroom=self.min_headroom)
+
+    def sharded_twin(self, runner, mesh: PopMesh) -> DeviceSamplerTwin:
+        return sharded_energy_aware_twin(
+            runner.ltfl, runner.population_size, runner.cohort_size, mesh,
+            min_headroom=self.min_headroom, seed=runner.seed,
+            device=runner.device)

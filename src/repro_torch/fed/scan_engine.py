@@ -94,8 +94,30 @@ its parent's deadline, buffer and churn, and ``_engine_signature`` keeps
 lanes of different async settings in different buckets. Without
 ``_async`` none of this runs.
 
-Not ported yet: ``population_sharding`` (the sharded registry, ROADMAP
-A7; asking for it raises).
+The registry in blocks
+----------------------
+``population_sharding=S`` (an int, or a ``PopMesh`` whose devices may
+repeat a card; needs ``rng="device"``) keeps the (N,) registry on the
+device in S equal blocks (``repro_torch.fed.population.
+PopulationArrays``), the reference's ``body_dev_sharded``. One runner
+drives every block; the (U,) step, the control plane, the range
+estimates and the async state stay on the runner's device. The registry
+and the (N_pad, W) int32 data-index table (widened to int64 only after
+the (U, W) gather) upload once (``_n_pop_uploads``). Per round and lane,
+``_sharded_draws`` takes, in order: the epoch bump and the U fresh
+block-fading values from the lane's generator (where the unsharded path
+draws all N), the two-stage cohort on last-known CSI (the twin's
+per-block generators), the lazy refresh of the cohort's stale members,
+the cohort's channel view and index rows gathered from the blocks; then
+the batch indices from the lane's generator, the program's draws and
+the packet outcomes as above. Under block fading this is the host
+``Population``'s semantics (schedule on stale CSI, then refresh U), not
+the unsharded device path's (redraw all N, then schedule), so the two
+are different runs; S does not change a channel-aware run's cohorts or
+fading. ``host_sync`` folds the blocks back into the host population
+once per ``run``, each device with its own fading epoch. A sweep over a
+sharded parent gives every lane its own blocks and needs every lane's N
+to be the parent's.
 """
 from __future__ import annotations
 
@@ -117,8 +139,20 @@ from repro_torch.core.channel import (
 )
 from repro_torch.core.convergence import gamma
 from repro_torch.core.delay_energy import round_accounting_dev
-from repro_torch.fed.population import UniformSampler
+from repro_torch.fed.population import (
+    UniformSampler,
+    device_population,
+    gather_cohort_dev,
+    gather_parts_dev,
+    host_sync,
+    refresh_cohort_dev,
+)
 from repro_torch.fed.rounds import FedRunner, RoundRecord
+from repro_torch.launch.sharding import (
+    population_blocks,
+    population_mesh,
+    population_pad,
+)
 
 Tree = Dict[str, torch.Tensor]
 
@@ -293,7 +327,11 @@ class ScanRunner(FedRunner):
       segments; default) or ``"device"`` (both inside the segment,
       through the scheme's ``scan_control_program``; needs
       ``rng="device"``);
-    * ``max_segment``: optional cap on a segment's length.
+    * ``max_segment``: optional cap on a segment's length;
+    * ``population_sharding``: S, or a ``PopMesh``: the registry in S
+      blocks (module docstring; needs ``rng="device"``). An int builds
+      ``population_mesh(S)`` over S cards for a CUDA runner, S blocks on
+      the CPU for a CPU runner.
 
     ``segment_sync_debug`` (None, ``"warn"`` or ``"error"``) runs each
     segment's loop under ``torch.cuda.set_sync_debug_mode`` on a card.
@@ -310,6 +348,11 @@ class ScanRunner(FedRunner):
                  population_sharding=None, **kwargs):
         if rng not in ("host", "device"):
             raise ValueError(f"rng={rng!r} (want 'host' or 'device')")
+        if population_sharding is not None and rng != "device":
+            raise ValueError(
+                "population_sharding keeps the device registry in blocks "
+                "and draws cohorts on the device through the sharded "
+                "sampler twins; pass rng='device'")
         if control not in ("host", "device"):
             raise ValueError(
                 f"control={control!r} (want 'host' or 'device')")
@@ -317,11 +360,6 @@ class ScanRunner(FedRunner):
             raise ValueError(
                 "control='device' decides inside the segment, which needs "
                 "the segment's own rng stream; pass rng='device'")
-        if population_sharding is not None:
-            raise ValueError(
-                "population_sharding (the device registry laid out over "
-                "several cards) is not ported yet (ROADMAP A7); leave it "
-                "None")
         if not scheme.scan_supported:
             raise ValueError(
                 f"{type(scheme).__name__} needs per-round host feedback "
@@ -336,6 +374,7 @@ class ScanRunner(FedRunner):
         self.rng = rng
         self.control = control
         self.max_segment = max_segment
+        self.seed = int(kwargs.get("seed", 0))
         self._ctl_program = None
         self._ctl_state = None
         rc = scheme.scan_recontrol_every(self)
@@ -350,8 +389,33 @@ class ScanRunner(FedRunner):
             self._ctl_state = self._ctl_program.init
         self._sampler_twin = None
         self._generator: Optional[torch.Generator] = None
-        if rng == "device":
+        self._pop_mesh = None
+        if population_sharding is not None:
+            mesh = population_sharding
+            if isinstance(mesh, int):
+                mesh = population_mesh(
+                    mesh, devices=(None if self.device.type == "cuda"
+                                   else [self.device] * mesh))
+            if "pop" not in getattr(mesh, "axis_names", ()):
+                raise ValueError(
+                    f"population_sharding mesh {mesh!r} has no 'pop' axis "
+                    "(use repro_torch.launch.sharding.population_mesh)")
+            if any(d.type != self.device.type for d in mesh.devices):
+                raise ValueError(
+                    f"population_sharding mesh devices {mesh.devices} do "
+                    f"not match the runner's device {self.device}")
+            self._pop_mesh = mesh
+            self._sampler_twin = self.sampler.sharded_twin(self, mesh)
+            if self._sampler_twin is None:
+                raise ValueError(
+                    "population_sharding needs a sharded sampler twin, but "
+                    f"{type(self.sampler).__name__}.sharded_twin() "
+                    "returned None; use an unsharded runner or a sampler "
+                    "with a sharded twin (repro_torch.control."
+                    "device_samplers)")
+        elif rng == "device":
             self._sampler_twin = self.sampler.device_twin(self)
+        if rng == "device":
             if self._sampler_twin is None:
                 raise ValueError(
                     f"rng='device' draws cohorts on the device, but "
@@ -381,7 +445,10 @@ class ScanRunner(FedRunner):
         # needs the cohort's view)
         self._parts_padded: Optional[torch.Tensor] = None
         self._part_sizes: Optional[torch.Tensor] = None
-        self._pop_dev: Optional[ChannelArrays] = None
+        # ChannelArrays (N,), or PopulationArrays under population_sharding
+        # (then the two above are lists of blocks)
+        self._pop_dev: Optional[Any] = None
+        self._n_pop_uploads = 0      # registry uploads (one per runner)
         self._range_sq_dev: Optional[torch.Tensor] = None
         self._eval_dev: Optional[List[Tree]] = None
         self._host_pop_stale = False
@@ -395,7 +462,10 @@ class ScanRunner(FedRunner):
         """Upload the training pool (both modes); under device control
         the eval head's fixed batches (those ``evaluate`` scores); for
         device rng the (N, W) padded index table, the shard sizes, the
-        (N,) channel state and the (N,) gradient-range estimates, once."""
+        (N,) channel state and the (N,) gradient-range estimates, once.
+        Under ``population_sharding`` the registry, the table and the
+        sizes go over the mesh in N_pad / S row blocks, the table and
+        sizes as int32 (zero rows pad the table)."""
         if self._data_dev is None:
             self._data_dev = self._to_device(self.batcher.base.arrays)
         # the quadrature's constants, on the device the segment uses
@@ -406,15 +476,28 @@ class ScanRunner(FedRunner):
                               for b in self._eval_batches()]
         if self.rng != "device" or self._parts_padded is not None:
             return
-        self._pop_dev = self.population.channel.to_arrays(self.device)
         self._range_sq_dev = torch.from_numpy(
             self._range_sq_pop.astype(np.float32)).to(self.device)
-        table = self.batcher.padded_parts(dtype=np.int64)
+        mesh = self._pop_mesh
+        dtype = np.int64 if mesh is None else np.int32
+        table = self.batcher.padded_parts(dtype=dtype)
         if table.shape[1] == 0:                  # every shard empty
-            table = np.zeros((table.shape[0], 1), np.int64)
-        self._parts_padded = torch.from_numpy(table).to(self.device)
-        self._part_sizes = torch.from_numpy(
-            self.batcher.client_sizes().astype(np.int64)).to(self.device)
+            table = np.zeros((table.shape[0], 1), dtype)
+        sizes = self.batcher.client_sizes().astype(dtype)
+        if mesh is None:
+            self._pop_dev = self.population.channel.to_arrays(self.device)
+            self._parts_padded = torch.from_numpy(table).to(self.device)
+            self._part_sizes = torch.from_numpy(sizes).to(self.device)
+        else:
+            self._pop_dev = device_population(self.population, mesh)
+            n, n_pad = table.shape[0], population_pad(table.shape[0], mesh)
+            if n_pad > n:
+                table = np.concatenate(
+                    [table, np.zeros((n_pad - n, table.shape[1]), dtype)])
+                sizes = np.concatenate([sizes, np.zeros(n_pad - n, dtype)])
+            self._parts_padded = population_blocks(table, mesh)
+            self._part_sizes = population_blocks(sizes, mesh)
+        self._n_pop_uploads += 1
         if self._sampler_twin.prepare is not None:
             self._sampler_twin.prepare(self._pop_dev)
 
@@ -651,15 +734,42 @@ class ScanRunner(FedRunner):
         host ``Population`` and refresh the cohort's view."""
         if not self._host_pop_stale:
             return
-        ch = self.population.channel
-        ch.fading_mean[:] = self._pop_dev.fading_mean.cpu().numpy()
-        ch.interference[:] = self._pop_dev.interference.cpu().numpy()
-        if self.block_fading:
-            # the device redraws the whole population every epoch
-            self.population.fading_epoch[:] = self.population.epoch
+        if self._pop_mesh is not None:
+            # each device's own epoch: the blocks refresh lazily
+            host_sync(self.population, self._pop_dev)
+        else:
+            ch = self.population.channel
+            ch.fading_mean[:] = self._pop_dev.fading_mean.cpu().numpy()
+            ch.interference[:] = self._pop_dev.interference.cpu().numpy()
+            if self.block_fading:
+                # the device redraws the whole population every epoch
+                self.population.fading_epoch[:] = self.population.epoch
         self._range_sq_pop[:] = self._range_sq_dev.cpu().numpy()
         self.channel = self.population.view(self.cohort)
         self._host_pop_stale = False
+
+    def _sharded_draws(self, gen: torch.Generator):
+        """One round's population work on the registry in blocks, in
+        ``body_dev_sharded``'s order: under block fading the epoch bump
+        and U fresh (fading, interference) values from the lane's
+        generator ``gen``; the cohort from the two-stage twin on
+        last-known CSI; the lazy refresh of its stale members; its (U,)
+        channel view and (U, W) index rows from the blocks. Returns (the
+        view, the cohort, pi or None, the rows and sizes as int64), all
+        on the runner's device; no host sync."""
+        mesh, pop = self._pop_mesh, self._pop_dev
+        w = self.ltfl.wireless
+        fresh = None
+        if self.block_fading:
+            pop = self._pop_dev = pop._replace(epoch=pop.epoch + 1)
+            fresh = draw_fading_dev(w, gen, self.cohort_size)
+        cohort, pi = self._sampler_twin.select(pop.channel, gen)
+        if fresh is not None:
+            refresh_cohort_dev(w, mesh, pop, cohort, fresh=fresh)
+        ch = gather_cohort_dev(mesh, pop.channel, cohort, self.device)
+        rows, sizes = gather_parts_dev(mesh, self._parts_padded,
+                                       self._part_sizes, cohort, self.device)
+        return ch, cohort, pi, rows.to(torch.int64), sizes.to(torch.int64)
 
     # ------------------------------------------------------------------ #
     # the public loop
@@ -719,13 +829,14 @@ class ScanRunner(FedRunner):
                           spec.ltfl if spec.ltfl is not None else c["ltfl"],
                           c["train"], c["test"], scheme, rng=self.rng,
                           control=self.control,
-                          max_segment=self.max_segment, **kw)
+                          max_segment=self.max_segment,
+                          population_sharding=self._pop_mesh, **kw)
 
     def _lane_signature(self, lane: "ScanRunner") -> tuple:
         """The bucket key: everything a segment bakes in. Lanes share a
         bucket iff their signatures match."""
         sig = (lane._scan_shape_signature(), lane.rng, lane.control,
-               lane.max_segment, type(lane.sampler).__name__,
+               lane.max_segment, lane._pop_mesh, type(lane.sampler).__name__,
                lane.scheme.scan_lane_signature(lane),
                lane._engine_signature())
         if lane.rng == "device" and \
@@ -751,7 +862,10 @@ class ScanRunner(FedRunner):
         land on ``self._last_sweep_buckets``. This runner's own state is
         not touched. Each bucket's entry holds its ``signature``, its
         ``lane_indices`` and its ``lanes``, the runners as they finished
-        (their ``params`` are the lanes' final weights)."""
+        (their ``params`` are the lanes' final weights). Over a sharded
+        parent every lane gets its own blocks on the parent's mesh; a
+        lane with another ``population_size`` raises, naming its
+        label."""
         if isinstance(sweep, SweepSpec):
             if scheme_factory is not None:
                 raise ValueError(
@@ -761,6 +875,19 @@ class ScanRunner(FedRunner):
         else:
             specs = [LaneSpec(seed=int(s), scheme_factory=scheme_factory)
                      for s in sweep]
+        if self._pop_mesh is not None:
+            for spec in specs:
+                n_lane = (spec.kwargs or {}).get("population_size",
+                                                 self.population_size)
+                if n_lane is not None and \
+                        int(n_lane) != self.population_size:
+                    raise ValueError(
+                        f"run_sweep lane {spec.label!r} sets "
+                        f"population_size={int(n_lane)} but the sharded "
+                        f"parent registers {self.population_size} devices; "
+                        "lanes over one population_sharding mesh share N "
+                        "(cohort-size, regime and seed grids are fine): run "
+                        "other N as separate sweeps")
         lanes = [self._build_lane(spec) for spec in specs]
         self._ensure_device_world()
         buckets: Dict[tuple, List[int]] = {}
@@ -963,7 +1090,8 @@ def _device_round(lanes: List[ScanRunner], lane_views, fixed, r: int,
                   decide: bool):
     """One round's draws and controls for every lane, each from its own
     generator in a fixed order: the fading, the cohort and the batch
-    indices; then the control program's decision (its BO draws), when
+    indices (a sharded lane: ``ScanRunner._sharded_draws``, then the
+    batch indices); then the control program's decision (its BO draws), when
     the lanes have one; then the packet outcomes at the decided power
     (the step then draws the quantizer's uniforms). Each lane consumes
     its stream exactly as it would alone, and without a program as under
@@ -976,24 +1104,27 @@ def _device_round(lanes: List[ScanRunner], lane_views, fixed, r: int,
     views, cohorts, weights, incls, idx = [], [], [], [], []
     for lane in lanes:
         gen = lane._generator
-        if lane.block_fading:
-            # the whole population redrawn each epoch, on the device
-            fading, interference = draw_fading_dev(lane.ltfl.wireless, gen,
-                                                   lane.population_size)
-            lane._pop_dev = lane._pop_dev._replace(
-                fading_mean=fading, interference=interference)
-        ch_pop = lane._pop_dev
-        cohort, pi = lane._sampler_twin.select(ch_pop, gen)
-        ch = ch_pop.take(cohort)
+        if lane._pop_mesh is not None:
+            ch, cohort, pi, rows, sizes = lane._sharded_draws(gen)
+        else:
+            if lane.block_fading:
+                # the whole population redrawn each epoch, on the device
+                fading, interference = draw_fading_dev(
+                    lane.ltfl.wireless, gen, lane.population_size)
+                lane._pop_dev = lane._pop_dev._replace(
+                    fading_mean=fading, interference=interference)
+            ch_pop = lane._pop_dev
+            cohort, pi = lane._sampler_twin.select(ch_pop, gen)
+            ch = ch_pop.take(cohort)
+            sizes = torch.index_select(lane._part_sizes, 0, cohort)
+            rows = torch.index_select(lane._parts_padded, 0, cohort)
         # a zero-sample device draws index 0 of its all-zero row: its
         # aggregation weight (num_samples = 0) discards it
-        sizes = torch.clamp(torch.index_select(lane._part_sizes, 0, cohort),
-                            min=1)
+        sizes = torch.clamp(sizes, min=1)
         draws = torch.floor(torch.rand((u, bsz), generator=gen,
                                        device=sizes.device)
                             * sizes[:, None].to(torch.float32))
         draws = torch.minimum(draws.to(torch.int64), sizes[:, None] - 1)
-        rows = torch.index_select(lane._parts_padded, 0, cohort)
         idx.append(torch.gather(rows, 1, draws))
         if lane.participation == "unbiased":
             weights.append(ch.num_samples / pi)

@@ -18,6 +18,10 @@ these run on the card's machine too).
   stable argsort), and under ``control="device"`` the program's feedback
   sees the buffered delay. A ``gpu`` test holds the degenerate contract
   on the card, with every segment under the sync check.
+* Async on the registry in blocks (``population_sharding=8``, N = 40):
+  the degenerate case bitwise the sharded ``ScanRunner``, buffered
+  admission with churn and K < U against the host replay of the logged
+  admissions, and the reference's ``rng="host"`` guard.
 """
 import dataclasses
 
@@ -31,7 +35,9 @@ from repro_torch.core.convergence import gamma, gamma_dev, gap_terms
 from repro_torch.data import ArrayDataset, synthetic_cifar
 from repro_torch.fed import (
     AsyncRunner,
+    ChannelAwareSampler,
     ChurnSpec,
+    EnergyAwareSampler,
     FedMPScheme,
     FedSGDScheme,
     LTFLScheme,
@@ -173,6 +179,55 @@ def test_async_validation(world):
         # built like ScanRunner: on cuda unless asked, no CPU fallback
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make(AsyncRunner, world, FedSGDScheme(), device=None)
+
+
+# --------------------------------------------------------------------------- #
+# async on the registry in blocks
+# --------------------------------------------------------------------------- #
+SHARDED = dict(population_size=40, cohort_size=4, rng="device",
+               population_sharding=8, block_fading=True,
+               cohort_sampler=ChannelAwareSampler())
+
+
+def test_sharded_degenerate_async_is_scanrunner_bitwise(world):
+    sync = make(ScanRunner, world, FedSGDScheme(), **SHARDED)
+    asyn = make(AsyncRunner, world, FedSGDScheme(), **SHARDED)
+    assert_history_bitwise(sync.run(5), asyn.run(5))
+    assert_same_weights(sync, asyn)
+    assert torch.equal(sync._generator.get_state(),
+                       asyn._generator.get_state())
+    np.testing.assert_array_equal(sync.population.fading_epoch,
+                                  asyn.population.fading_epoch)
+
+
+@pytest.mark.parametrize("sampler", [ChannelAwareSampler(explore=0.25),
+                                     EnergyAwareSampler()],
+                         ids=["channel_explore", "energy"])
+def test_sharded_async_churn_and_buffer(world, sampler):
+    """K = 2 of U = 4, a deadline and churn over the sharded registry:
+    the (N,) tau on the runner's device follows the host replay of the
+    logged admissions; cohorts reach beyond the first one."""
+    r = make(AsyncRunner, world, FedSGDScheme(), deadline=DEADLINE,
+             buffer_size=2, churn=ChurnSpec(0.2, 0.5, 0.1),
+             **{**SHARDED, "cohort_sampler": sampler})
+    h = r.run(8)
+    tau = np.zeros(40)
+    for rec, arec in zip(h, r.async_history):
+        cohort = np.asarray(rec.cohort, int)
+        assert len(np.unique(cohort)) == 4 and np.all(cohort < 40)
+        assert np.isfinite(rec.train_loss)
+        np.testing.assert_array_equal(arec["tau"], tau[cohort])
+        assert rec.received <= arec["n_admitted"] <= 2
+        tau[cohort] = np.where(arec["admitted"], 0.0, tau[cohort] + 1.0)
+    np.testing.assert_array_equal(r.staleness, tau)
+    assert len({tuple(rec.cohort) for rec in h}) > 1
+    assert r._tau_dev.shape == (40,)
+
+
+def test_sharded_async_needs_device_rng(world):
+    with pytest.raises(ValueError, match="rng='device'"):
+        make(AsyncRunner, world, FedSGDScheme(),
+             **{**SHARDED, "rng": "host"})
 
 
 # --------------------------------------------------------------------------- #

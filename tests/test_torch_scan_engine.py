@@ -19,9 +19,9 @@ per-round loop.
   and for STC (its residual carried through the segment); accounting and
   gamma at the same tolerances. ``max_segment=1`` is the per-round loop,
   and a second ``run`` restarts the round numbering.
-* The guards (``control="device"`` with ``rng="host"`` raises, as the
-  reference's does), and ``make_scanned_step`` against a loop of its
-  step.
+* The guards (``control="device"`` or ``population_sharding`` with
+  ``rng="host"`` raises, as the reference's does), and
+  ``make_scanned_step`` against a loop of its step.
 """
 import dataclasses
 import types
@@ -380,8 +380,14 @@ def test_scan_guards(world):
                       params_to_numpy(params), RefLTFLConfig(**LTFL), train,
                       test, REF_SCHEMES["fedsgd"](), batch_size=8,
                       control="device", rng="host")
-    with pytest.raises(ValueError, match="A7"):
-        make(population_sharding=2, rng="device")
+    # the reference's guard: the registry in blocks is drawn on the device
+    with pytest.raises(ValueError, match="rng='device'"):
+        make(population_sharding=2, rng="host")
+    with pytest.raises(ValueError, match="rng='device'"):
+        RefScanRunner(RefMLP(RefMLPConfig(**MLP_KW)),
+                      params_to_numpy(params), RefLTFLConfig(**LTFL), train,
+                      test, REF_SCHEMES["fedsgd"](), batch_size=8,
+                      population_sharding=2, rng="host")
     with pytest.raises(ValueError, match="rng="):
         make(rng="numpy")
     with pytest.raises(ValueError, match="max_segment"):

@@ -644,3 +644,19 @@ def host_bo_draws(seed: int, alternations: int, iters: int, d: int,
             ep[a, m] = rng.normal(0.0, 0.1, size=(n_candidates // 4, d))
     return BODraws(*(torch.from_numpy(x.astype(np.float32))
                      for x in (ui, uc, ep)))
+
+
+def mlp_world(n_train=600, n_test=128, seed=0):
+    """The engine tests' small world on the port's side: an MLP (hidden
+    16, downsample 4) from a seeded generator and synthetic CIFAR train
+    and test sets; returns (model, params, train, test)."""
+    from repro_torch.data import ArrayDataset, synthetic_cifar
+    from repro_torch.models import MLP, MLPConfig
+    imgs, labels = synthetic_cifar(n_train, seed=seed)
+    timgs, tlabels = synthetic_cifar(n_test, seed=seed + 1)
+    model = MLP(MLPConfig(hidden=(16,), downsample=4))
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    return (model, model.init(gen),
+            ArrayDataset({"images": imgs, "labels": labels}),
+            ArrayDataset({"images": timgs, "labels": tlabels}))
