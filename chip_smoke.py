@@ -272,6 +272,26 @@ Phases; any failure exits non-zero before the result lines:
    round (min of 3 10-round runs) and the 10^6 / 10^4 ratio, reported,
    not gated.
 
+28. the host leftovers on the datacenter path, granite-8b at its
+   published widths cut to 2 layers and the launcher's defaults (phase
+   9's ``DatacenterRun``), 3 steps each with the launch counts set to 0
+   just before: (a) the int8 wire format (``make_fl_train_step(...,
+   int8_collective=True)``, SGD): 9 ``block_norms``, 18
+   ``apply_block_mask`` and 0 ``stochastic_quant`` launches a step, the
+   first step's int8 levels of all 12 leaves within [-127, 127]; (b)
+   ``momentum(0.05)`` and ``adamw(0.05)`` on phase 9's LTFL step: 12 / 9
+   / 18 a step and the optimizer state's bytes; every loss finite, step
+   times beside phase 9's and the peak memory; (c) phase 8's card-vs-CPU
+   check in float32 for the int8 step (the update held to the bfloat16
+   aggregate's noise) and for AdamW (a sign flip of Adam's first step
+   allowed); (d) ``ops.quantize_dequantize_2d`` and the static
+   ``stochastic_quant_static`` at the 9 tileable leaf shapes, float32 and
+   bfloat16, bits 1, 2, 4, 8: one B1 launch a call, held to the plain
+   version by phase 3's rules; (e) ``make_plain_train_step`` with SGD on
+   one batch of 8 x 128, 2 steps: losses finite, no kernel launch; (f)
+   ``examples/torch_serve_batched.py`` at its defaults as a subprocess:
+   exit 0 and its tok/s.
+
 ``--profile DIR`` also writes torch.profiler tables of one edge round
 (``DIR/profile_round.txt``), one datacenter step
 (``DIR/profile_step.txt``; phase 18's ``profile_step_<arch>.txt``), one
@@ -291,7 +311,10 @@ engine's by mode (``async_launches_per_round``) and for its sweep bucket
 the
 sweep bucket's launches a round for its lanes and its check against the
 plain version at the bucket's rows (``max_abs_err`` is the larger of
-phase 3's and that check's float32 error). The
+phase 3's and that check's float32 error), and phase 28's static-bits
+calls (``static_bits_*``). The B1-B3 rows carry phase 28's launches a
+step under the int8 wire format, momentum and AdamW
+(``host_leftover_launches_per_step``). The
 ``block_sparse_matmul`` row also carries its main-path launches by path
 (``path``), the paths of phase 11's products (``check_paths``), its rate
 on live work (``kernel_tflops``) and the rho sweep.
@@ -372,6 +395,16 @@ SERVE_D_CHECK = (8, 63)
 SEQ_CACHES = ("k", "v", "ckv", "attn_k", "attn_v", "self_k", "self_v")
 QUANT_FLOPS_PER_ELEM = 10               # abs, sub, div, floor, sub, cmp,
                                         # add, clip (2), mul-add (2)
+
+
+def kernel_modules(*names):
+    """The kernel wrapper modules ``repro_torch.kernels.<name>``.
+    ``repro_torch.kernels`` exports the functions ``stochastic_quant``
+    and ``block_sparse_matmul`` under their modules' names (as the
+    reference's package does), so its attributes are not the modules."""
+    import importlib
+    return tuple(importlib.import_module(f"repro_torch.kernels.{n}")
+                 for n in names)
 
 
 def fail(msg: str) -> None:
@@ -852,18 +885,24 @@ def _bf16_ulp(x):
 
 
 def phase_small_datacenter(name: str = "granite-8b",
-                           dtypes=None) -> None:
+                           dtypes=None, variant: str = "sgd") -> None:
     """One block-pruned step of ``name`` at reduce_for_smoke widths on the
     card and on the CPU: same weights, batch (with image embeddings or
     frames where the family takes them), controls, uniforms and drop
-    draw; in each of ``dtypes`` (default float32 and bfloat16)."""
+    draw; in each of ``dtypes`` (default float32 and bfloat16).
+    ``variant`` "int8" runs the int8 wire format (SGD; the aggregate is
+    bfloat16, so the update is held to its bf16 noise: phase 8's bf16
+    rule on the update), "adamw" the LTFL quantizer under
+    ``adamw(0.05)`` (phase 4's rule, but a gradient at the noise level
+    may flip the sign of Adam's first step, lr * sign(g): no element
+    farther than twice the largest update)."""
     import torch
     from repro_torch.configs import get_arch, reduce_for_smoke
     from repro_torch.core.compressors import ltfl_quantizer
     from repro_torch.core.ltfl_step import make_fl_train_step
     from repro_torch.core.pruning import prune_pytree
     from repro_torch.models import build_model, make_train_batch
-    from repro_torch.optim import sgd
+    from repro_torch.optim import adamw, sgd
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
@@ -892,20 +931,22 @@ def phase_small_datacenter(name: str = "granite-8b",
         return torch.rand((nc,), generator=g)
 
     lr = 0.05
+    opt = adamw(lr) if variant == "adamw" else sgd(lr)
+    wire = (dict(int8_collective=True, int8_uniforms=cpu_uniforms)
+            if variant == "int8" else
+            dict(compressor=ltfl_quantizer(uniforms=cpu_uniforms)))
     for dtype in dtypes or (torch.float32, torch.bfloat16):
         out = {}
         for dev in ("cpu", "cuda"):
             step = make_fl_train_step(
-                model, sgd(lr), DC_CLIENTS, prune_block=32,
-                prune_kind="block",
-                compressor=ltfl_quantizer(uniforms=cpu_uniforms),
-                drop_uniforms=cpu_drops)
+                model, opt, DC_CLIENTS, prune_block=32,
+                prune_kind="block", drop_uniforms=cpu_drops, **wire)
             # the MoE router stays float32, as the spec has it
             p = {k: v.to(dev, torch.float32 if specs[k].dtype
                          == torch.float32 else dtype)
                  for k, v in init.items()}
             _, masks = prune_pytree(p, controls["rho"].to(dev), block=32)
-            p1, _, _, m = step(p, (), (),
+            p1, _, _, m = step(p, opt.init(p), (),
                                {k: v.to(dev) for k, v in batch.items()},
                                {k: v.to(dev) for k, v in controls.items()},
                                7)
@@ -913,7 +954,8 @@ def phase_small_datacenter(name: str = "granite-8b",
                         {k: v.cpu() for k, v in masks.items()},
                         float(m["loss"]), float(m["clients_received"]))
         (pc, mc, lc, rc), (pg, mg, lg, rg) = out["cpu"], out["cuda"]
-        where = f"{name} {str(dtype)[6:]}"
+        where = f"{name} {str(dtype)[6:]}" + (
+            "" if variant == "sgd" else f" {variant}")
         for k in mc:
             if not torch.equal(mc[k], mg[k]):
                 fail(f"small datacenter {where}: masks of {k} differ")
@@ -926,11 +968,19 @@ def phase_small_datacenter(name: str = "granite-8b",
         for k, v0 in init.items():
             v0 = _f32(v0.to(dtype))
             new_c, new_g = _f32(pc[k]), _f32(pg[k])
-            if dtype == torch.float32:      # phase 4's tolerances
+            if variant == "int8":           # the bf16 aggregate's noise
+                upd_c, upd_g = new_c - v0, new_g - v0
+                diff = (upd_g - upd_c).abs()
+                off = float((diff > _bf16_ulp(upd_c)).float().mean())
+                bad = off > 0.05 or bool(
+                    (diff > upd_c.abs().max() + _bf16_ulp(upd_c)).any())
+            elif dtype == torch.float32:    # phase 4's tolerances
                 uc, ug = (new_c - v0) / lr, (new_g - v0) / lr
                 scale = float(uc.abs().max()) + 1e-12
+                flip = 2.0 if variant == "adamw" else 1.0
                 off = float(((ug - uc).abs() > 1e-3 * scale).float().mean())
-                bad = off >= 1e-3 or float((ug - uc).abs().max()) > scale
+                bad = off >= 1e-3 or float((ug - uc).abs().max()) \
+                    > flip * scale
             else:                           # tests/test_torch_datacenter.py
                 diff = (new_g - new_c).abs()
                 ulp = _bf16_ulp(new_c)
@@ -954,8 +1004,9 @@ def phase_datacenter(profile_dir, name: str = "granite-8b", cut=None,
     memory, the parameter count ``n_want``."""
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import block_prune, stochastic_quant
     from repro_torch.launch import train
+    block_prune, stochastic_quant = kernel_modules("block_prune",
+                                                   "stochastic_quant")
 
     full = get_arch(name)
     arch = dc_arch() if cut is None else full.replace(**cut)
@@ -1196,8 +1247,10 @@ def phase_bsmm_vs_plain():
     |diff| over all comparisons, the main path's launch counts, B4's
     launches before this phase)."""
     import torch
-    from repro_torch.kernels import block_prune, block_sparse_matmul, ops
+    from repro_torch.kernels import ops
     from repro_torch.kernels.block_sparse_matmul import block_shape
+    block_prune, block_sparse_matmul = kernel_modules(
+        "block_prune", "block_sparse_matmul")
     from repro_torch.kernels.ref import block_norms_ref, \
         block_sparse_matmul_ref
 
@@ -1350,9 +1403,9 @@ def phase_baselines():
     from repro_torch.configs import LTFLConfig, ResNetConfig
     from repro_torch.data import ArrayDataset, synthetic_cifar
     from repro_torch.fed import ALL_SCHEMES, FedRunner
-    from repro_torch.kernels import block_prune, block_sparse_matmul, \
-        stochastic_quant
     from repro_torch.models import ResNet
+    stochastic_quant, block_prune, block_sparse_matmul = kernel_modules(
+        "stochastic_quant", "block_prune", "block_sparse_matmul")
 
     imgs, labels = synthetic_cifar(20000, seed=0)
     timgs, tlabels = synthetic_cifar(2000, seed=1)
@@ -1520,11 +1573,9 @@ def _bsmm_rho_sweep():
 # Serving (phases 14-16): no hand-written kernel lies on this path
 # --------------------------------------------------------------------------- #
 def all_launches():
-    from repro_torch.kernels import block_prune, block_sparse_matmul, \
-        stochastic_quant
-    return {k: v for c in (stochastic_quant.LAUNCHES, block_prune.LAUNCHES,
-                           block_sparse_matmul.LAUNCHES)
-            for k, v in c.items()}
+    return {k: v for m in kernel_modules("stochastic_quant", "block_prune",
+                                         "block_sparse_matmul")
+            for k, v in m.LAUNCHES.items()}
 
 
 def _rel(a, b) -> float:
@@ -3498,6 +3549,225 @@ def phase_registry(deadline: float):
     return out
 
 
+HOST_STEPS = 3                          # phase 28: steps a variant
+PLAIN_STEPS = 2                         # phase 28 (e)
+
+
+def _tensors(tree):
+    """The tensors of a nested dict / tuple (an optimizer state)."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [t for x in items for t in _tensors(x)]
+
+
+def _dc_variant(label: str, opt_name: str = "sgd", int8: bool = False):
+    """Phase 9's run (``DatacenterRun``: granite-8b at its published
+    widths, 2 layers, the launcher's defaults) with its step rebuilt by
+    ``make_fl_train_step``: ``opt_name`` (sgd / momentum / adamw at the
+    launcher's lr) and the int8 wire format. HOST_STEPS steps with the
+    launch counts set to 0 just before them; on the int8 step the first
+    step's levels are read back per leaf (dtype, min, max)."""
+    import torch
+    from repro_torch.core import ltfl_step
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw, momentum, sgd
+    args = train.build_parser().parse_args([])
+    modules = kernel_modules("stochastic_quant", "block_prune")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = train.DatacenterRun(dc_arch(), args, "cuda")
+    run.opt = {"sgd": sgd, "momentum": momentum, "adamw": adamw}[opt_name](
+        args.lr)
+    run.step_fn = ltfl_step.make_fl_train_step(
+        run.model, run.opt, args.clients, prune_block=args.prune_block,
+        prune_kind="block", int8_collective=int8)
+    run.opt_state = run.opt.init(run.params)
+    run.comp_state = run.step_fn.init_comp_state(run.params)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in _tensors(run.opt_state))
+    levels = []
+    quantize_int8_clients = ltfl_step.quantize_int8_clients
+
+    def record(g, rand):
+        lv, sc = quantize_int8_clients(g, rand)
+        levels.append((lv.dtype, lv.amin(), lv.amax()))
+        return lv, sc
+
+    for m in modules:
+        for k in m.LAUNCHES:
+            m.LAUNCHES[k] = 0
+    records, per_step, last = [], [], {}
+    for i in range(HOST_STEPS):
+        if int8 and i == 0:
+            ltfl_step.quantize_int8_clients = record
+        try:
+            records.append(run.step(i))
+        finally:
+            ltfl_step.quantize_int8_clients = quantize_int8_clients
+        now = {k: v for m in modules for k, v in m.LAUNCHES.items()}
+        per_step.append({k: now[k] - last.get(k, 0) for k in now})
+        last = now
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(bool(torch.isfinite(v).all()) for v in run.params.values())
+    for i, (m, got) in enumerate(zip(records, per_step)):
+        log(f"[host] {label} step {i}: loss={m['loss']!r} "
+            f"grad_norm={m['grad_norm']!r} "
+            f"received={m['clients_received']!r} step_s={m['seconds']!r} "
+            f"launches={got}")
+        if not math.isfinite(m["loss"]):
+            fail(f"{label} step {i}: loss {m['loss']}")
+    if not finite:
+        fail(f"{label}: non-finite weights after {HOST_STEPS} steps")
+    del run
+    torch.cuda.empty_cache()
+    return {"records": records, "per_step": per_step, "peak": peak,
+            "state_bytes": state_bytes,
+            "levels": [(dt, int(lo), int(hi)) for dt, lo, hi in levels]}
+
+
+def _static_quant_check(mats):
+    """The static-bits entry points (``ops.quantize_dequantize_2d`` and
+    ``stochastic_quant_static``) at each tileable leaf shape, float32 and
+    bfloat16, bits 1, 2, 4, 8: one B1 launch a call, held to the plain
+    version by phase 3's rules. Returns (calls, max f32 error, max bf16
+    error)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.stochastic_quant import (
+        LAUNCHES,
+        stochastic_quant_static,
+    )
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    calls, worst = 0, {}
+
+    def row(lo, hi, n_levels):
+        return torch.stack([lo, hi, torch.full((), float(n_levels),
+                                               device="cuda")]).reshape(1, 3)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (m, n) in mats.items():
+            g = (torch.randn(m, n, generator=gen, device="cuda")
+                 * 0.01).to(dtype)
+            u = torch.rand(m, n, generator=gen, device="cuda")
+            a = g.to(torch.float32).abs()
+            lo, hi = a.min(), a.max()
+            del a
+            for b in (1, 2, 4, 8):
+                where = f"static bits {b} {name} {(m, n)} {str(dtype)[6:]}"
+                n0 = LAUNCHES["stochastic_quant"]
+                q1 = ops.quantize_dequantize_2d(g, b, rand=u)
+                n1 = LAUNCHES["stochastic_quant"]
+                q2 = stochastic_quant_static(g, u, lo, hi, b)
+                n2 = LAUNCHES["stochastic_quant"]
+                if (n1 - n0, n2 - n1) != (1, 1):
+                    fail(f"{where}: launches {(n1 - n0, n2 - n1)}, want "
+                         f"one a call")
+                calls += 2
+                # ops' levels max(round(2^b) - 1, 1), the static 2^b - 1
+                triples = [(g.reshape(1, -1), u.reshape(1, -1),
+                            row(lo, hi, max(round(2.0 ** b) - 1, 1))),
+                           (g.reshape(1, -1), u.reshape(1, -1),
+                            row(lo, hi, 2 ** b - 1))]
+                err, _, _ = quant_vs_plain(
+                    triples, where, outs=[q1.reshape(1, -1),
+                                          q2.reshape(1, -1)])
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+                del q1, q2
+            del g, u
+    torch.cuda.empty_cache()
+    return calls, worst[torch.float32], worst[torch.bfloat16]
+
+
+def phase_host_leftovers(mats, dc_records, dc_peak):
+    """Phase 28: the int8 wire format, momentum and AdamW on the
+    datacenter path at granite-8b's published widths, card against CPU at
+    small size, the static-bits quantizer, the plain step and the
+    batched-serving example."""
+    import os
+    import torch
+    from repro_torch.core import make_plain_train_step
+    from repro_torch.launch import train
+    from repro_torch.optim import sgd
+    t0 = time.time()
+    want = {"block_norms": 9, "apply_block_mask": 18}
+    out = {}
+    # (a) the int8 wire format, (b) momentum and AdamW
+    for key, label, opt_name, int8, n_quant in (
+            ("int8", "int8 wire format (sgd)", "sgd", True, 0),
+            ("momentum", "momentum(0.05)", "momentum", False, 12),
+            ("adamw", "adamw(0.05)", "adamw", False, 12)):
+        r = _dc_variant(label, opt_name, int8)
+        for i, got in enumerate(r["per_step"]):
+            if got != {**want, "stochastic_quant": n_quant}:
+                fail(f"{label} step {i}: launches {got}, want "
+                     f"{ {**want, 'stochastic_quant': n_quant} }")
+        out[key] = r
+        log(f"[host] {label}: step_s={[m['seconds'] for m in r['records']]}"
+            f" (phase 9's sgd step: "
+            f"{[m['seconds'] for m in dc_records]}), "
+            f"max_memory_allocated={r['peak']} bytes (phase 9: {dc_peak}), "
+            f"optimizer state {r['state_bytes']} bytes")
+    lv = out["int8"]["levels"]
+    if len(lv) != 12 or any(dt != torch.int8 or lo < -127 or hi > 127
+                            for dt, lo, hi in lv):
+        fail(f"int8 levels off: {lv}")
+    log(f"[host] int8 levels of the first step, 12 leaves: dtype int8, "
+        f"min {min(l[1] for l in lv)}, max {max(l[2] for l in lv)}")
+    # (c) card against CPU at small size
+    phase_small_datacenter("granite-8b", (torch.float32,), "int8")
+    phase_small_datacenter("granite-8b", (torch.float32,), "adamw")
+    # (d) the static-bits quantizer
+    calls, f32_err, bf16_err = _static_quant_check(mats)
+    log(f"[host] static-bits quantizer: {calls} calls ({len(mats)} leaf "
+        f"shapes x f32/bf16 x bits 1/2/4/8 x 2 entry points), one launch "
+        f"each; f32 max_abs_err {f32_err!r} (bitwise), bf16 {bf16_err!r}")
+    # (e) the plain step on one global batch of 8 x 128
+    args = train.build_parser().parse_args([])
+    run = train.DatacenterRun(dc_arch(), args, "cuda")
+    batch = {k: v.reshape(-1, *v.shape[2:]) for k, v in run.batch.items()}
+    step = make_plain_train_step(run.model, sgd(args.lr))
+    before = all_launches()
+    params, opt_state, plain = run.params, (), []
+    for i in range(PLAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch, i)
+        loss = float(m["loss"])
+        plain.append((loss, time.perf_counter() - t1))
+        if not math.isfinite(loss):
+            fail(f"plain step {i}: loss {loss}")
+    if all_launches() != before:
+        fail(f"the plain step launched kernels: {before} -> "
+             f"{all_launches()}")
+    log(f"[host] plain step, batch {tuple(batch['tokens'].shape)}: "
+        f"(loss, s) {plain}, no kernel launch")
+    del run, params, step
+    torch.cuda.empty_cache()
+    # (f) the batched-serving example at its defaults
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC)
+    proc = subprocess.run(
+        [sys.executable, str(HERE / "examples" / "torch_serve_batched.py")],
+        env=env, capture_output=True, text=True, timeout=300, cwd=HERE)
+    lines = proc.stdout.strip().splitlines()
+    rate = [l for l in lines if l.startswith("generated ")]
+    if proc.returncode != 0 or len(rate) != 1 or "tok/s" not in rate[0]:
+        fail(f"examples/torch_serve_batched.py: exit {proc.returncode}\n"
+             f"{proc.stdout}{proc.stderr}")
+    for line in lines:
+        log(f"[host] example: {line}")
+    tok_s = float(rate[0].split("(")[1].split()[0])
+    log(f"[host] phase 28 in {time.time() - t0:.1f} s")
+    return {"int8": out["int8"], "momentum": out["momentum"],
+            "adamw": out["adamw"], "static_calls": calls,
+            "static_f32_err": f32_err, "static_bf16_err": bf16_err,
+            "plain": plain, "example_tok_s": tok_s}
+
+
 def serve_arch(name: str):
     from repro_torch.configs import get_arch
     return get_arch(name)
@@ -3545,7 +3815,7 @@ def main() -> None:
              "want 9")
     norm_err, mask_err = phase_block_vs_plain(mats)
     phase_small_datacenter()
-    dc_launches, _, _ = phase_datacenter(profile_dir)
+    dc_launches, dc_peak, dc_records = phase_datacenter(profile_dir)
     bt = phase_block_timing(mats)
     stamp("7-10")
     bsmm_err_small, bsmm_err, bsmm_launches, bsmm_other, bsmm_checks = \
@@ -3603,10 +3873,18 @@ def main() -> None:
     # the registry in blocks at N = 10^6
     registry = phase_registry(asy["deadline_s"])
     stamp("27")
+    # the host leftovers: int8 wire format, momentum / AdamW, static bits
+    host = phase_host_leftovers(mats, dc_records, dc_peak)
+    stamp("28")
     log(f"[done] {time.time() - t_start:.1f} s")
 
     def per_family(key):
         return {name: t[key] for name, t in family_launches.items()}
+
+    def host_launches(key):
+        """Phase 28's launches a step (the first step's; all equal)."""
+        return {v: host[v]["per_step"][0][key]
+                for v in ("int8", "momentum", "adamw")}
 
     def block_row(name, key, launches, err, extra):
         return {
@@ -3631,6 +3909,7 @@ def main() -> None:
             "largest_leaf_library_ms": bt[f"{key}_largest_library_ms"],
             "largest_leaf_bound_ms": bt[f"{key}_largest_bound_ms"],
             "family_datacenter_launches": per_family(name),
+            "host_leftover_launches_per_step": host_launches(name),
             **extra,
         }
 
@@ -3666,6 +3945,11 @@ def main() -> None:
         "sharded_launches_per_round": registry["launches_per_round"],
         "sharded_async_launches_per_round":
             registry["async_launches_per_round"],
+        "static_bits_launches_per_call": 1,
+        "static_bits_calls_checked": host["static_calls"],
+        "static_bits_max_abs_err_f32": host["static_f32_err"],
+        "static_bits_max_abs_err_bf16": host["static_bf16_err"],
+        "host_leftover_launches_per_step": host_launches("stochastic_quant"),
     }, block_row("block_norms", "norms", dc_launches["block_norms"],
                  norm_err, {}),
         block_row("apply_block_mask", "mask",

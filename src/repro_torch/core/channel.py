@@ -1,7 +1,8 @@
 """Wireless transmission model (paper Section 2.1, Eq. 1-4), host half.
 
 Held against ``repro.core.channel`` (``DeviceChannel``, ``ChannelState``,
-``expected_rate``, ``packet_error_rate``, ``sample_transmissions``): the
+``expected_rate``, ``packet_error_rate``, ``sample_transmissions``,
+``sample_devices``): the
 same float64 numpy arithmetic, so rates, packet error rates and seeded
 transmission outcomes are bitwise equal to the reference's.
 
@@ -182,6 +183,26 @@ def as_channel_state(devices: Devices) -> ChannelState:
     if isinstance(devices, DeviceChannel):
         return ChannelState.from_devices([devices])
     return ChannelState.from_devices(devices)
+
+
+def sample_devices(cfg: WirelessConfig, num: int, samples_min: int,
+                   samples_max: int, rng: np.random.Generator
+                   ) -> Tuple[DeviceChannel, ...]:
+    """Legacy tuple-of-dataclass sampler, one device at a time in the
+    reference's draw order (``repro.core.channel.sample_devices``, lines
+    233-251), so seeded callers see the same devices; ``ChannelState.
+    sample`` draws field by field instead."""
+    out = []
+    for _ in range(num):
+        out.append(DeviceChannel(
+            distance=float(rng.uniform(cfg.dist_min, cfg.dist_max)),
+            fading_mean=cfg.fading_scale,
+            interference=float(rng.uniform(cfg.interference_min,
+                                           cfg.interference_max)),
+            cpu_hz=float(rng.uniform(cfg.cpu_min, cfg.cpu_max)),
+            num_samples=int(rng.integers(samples_min, samples_max + 1)),
+        ))
+    return tuple(out)
 
 
 def _mean_gain(dev) -> np.ndarray:

@@ -86,10 +86,10 @@ def torch_uniforms(seed, n_clients: int,
                          device=device, dtype=torch.float32)
 
 
-def _lane_uniforms(seed, n_clients: int,
-                   shapes: Sequence[Tuple[int, ...]], device: torch.device,
-                   uniforms: Optional[UniformSource]
-                   ) -> Iterable[torch.Tensor]:
+def lane_uniforms(seed, n_clients: int,
+                  shapes: Sequence[Tuple[int, ...]], device: torch.device,
+                  uniforms: Optional[UniformSource]
+                  ) -> Iterable[torch.Tensor]:
     """Per leaf, the (C, *shape) uniforms: one lane's draw, or with a
     tuple of per-lane seeds each lane's rows from its own seed, stacked
     in lane order."""
@@ -115,7 +115,7 @@ def ltfl_quantizer(*, uniforms: Optional[UniformSource] = None
         n_clients = leaves[0].shape[0]
         shapes = [tuple(x.shape[1:]) for x in leaves]
         device = leaves[0].device
-        rands = _lane_uniforms(seed, n_clients, shapes, device, uniforms)
+        rands = lane_uniforms(seed, n_clients, shapes, device, uniforms)
         delta = delta.to(device=device, dtype=torch.float32)
         bits = torch.clamp(delta, min=1.0)
         out = {}

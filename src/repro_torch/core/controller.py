@@ -1,10 +1,13 @@
 """Two-stage LTFL controller (paper Section 5, Algorithm 1).
 
 Held against ``repro.core.controller`` (``optimal_rho``, ``optimal_delta``,
-``_evaluate``, ``solve``): the same float64 numpy arithmetic and rng
-consumption, so a seeded ``solve`` returns bitwise the reference's
-decision. Payloads come from ``payload_bits_host`` everywhere (the
-reference's jnp ``payload_bits`` evaluates the same f32 formula).
+``_evaluate``, ``solve``, and the scalar ``_evaluate_reference`` and
+``solve_reference``): the same float64 numpy arithmetic and rng
+consumption, so a seeded ``solve`` or ``solve_reference`` returns
+bitwise the reference's decision. Payloads come from the port's own
+float32 formula (``payload_bits_host``, or ``payload_bits`` on one
+device's numbers), as the reference's jnp ``payload_bits`` evaluates it:
+one float32 product and one float32 sum.
 
 Stage 1 (closed form): Theorem 2 gives the optimal pruning ratio rho*
 (Eq. 40-42), Theorem 3 the optimal quantization level delta* (Eq. 44-46),
@@ -17,7 +20,7 @@ candidate power matrices.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -35,7 +38,7 @@ from repro_torch.core.delay_energy import (
     device_round_delay,
     device_round_energy,
 )
-from repro_torch.core.quantization import payload_bits_host
+from repro_torch.core.quantization import payload_bits, payload_bits_host
 
 _PENALTY = 1e9
 
@@ -179,6 +182,109 @@ def solve(ltfl: LTFLConfig,
                                num_params)
 
     pers = packet_error_rate(w, state, powers)
+    return ControlDecision(rho=rhos, delta=deltas, power=powers, per=pers,
+                           gamma=float(final_gamma), alternations=k + 1,
+                           gamma_trace=np.asarray(trace))
+
+
+# --------------------------------------------------------------------------- #
+# Legacy scalar reference (parity baseline + benchmark comparison)
+# --------------------------------------------------------------------------- #
+def _payload(num_params: int, delta, xi_bits: int) -> float:
+    """One device's Eq. 18 payload in float32, as a Python float."""
+    return float(payload_bits(num_params, delta, xi_bits))
+
+
+def _evaluate_reference(ltfl: LTFLConfig, devices, range_sq_sums, rhos,
+                        deltas, powers, num_params: int) -> Tuple[float, bool]:
+    """The per-device-loop ``_evaluate`` of one (U,) power vector, kept
+    as the reference keeps it (``repro.core.controller``, lines
+    236-253)."""
+    w = ltfl.wireless
+    pers = [float(packet_error_rate(w, d, np.asarray(p)))
+            for d, p in zip(devices, powers)]
+    g = gamma_fn(ltfl, range_sq_sums, deltas, rhos, pers,
+                 [d.num_samples for d in devices])
+    feasible = True
+    for dev, rho, delta, p in zip(devices, rhos, deltas, powers):
+        payload = _payload(num_params, delta, ltfl.xi_bits)
+        t = device_round_delay(w, dev, payload, rho, p) + ltfl.server_delay
+        e = device_round_energy(w, dev, payload, rho, p)
+        if t > ltfl.t_max * (1 + 1e-9) or e > ltfl.e_max * (1 + 1e-9):
+            feasible = False
+            break
+    return g, feasible
+
+
+def _stage1_reference(ltfl: LTFLConfig, devices, deltas, powers,
+                      num_params: int):
+    """Theorems 2 and 3, one Python call per device."""
+    rhos = np.array([
+        optimal_rho(ltfl, dev, _payload(num_params, deltas[i], ltfl.xi_bits),
+                    float(powers[i]))
+        for i, dev in enumerate(devices)])
+    deltas = np.array([
+        optimal_delta(ltfl, dev, float(rhos[i]), float(powers[i]),
+                      num_params)
+        for i, dev in enumerate(devices)])
+    return rhos, deltas
+
+
+def solve_reference(ltfl: LTFLConfig, devices: Sequence[DeviceChannel],
+                    num_params: int,
+                    range_sq_sums: Optional[Sequence[float]] = None,
+                    rng: Optional[np.random.Generator] = None,
+                    verbose: bool = False) -> ControlDecision:
+    """The scalar Algorithm 1: O(U) Python calls per stage, on a tuple of
+    ``DeviceChannel`` (a ``ChannelState`` is split into one). Held
+    against ``repro.core.controller.solve_reference`` (lines 256-330):
+    the same seeded rng stream, so the decision is bitwise the
+    reference's and ``solve``'s."""
+    if isinstance(devices, ChannelState):
+        devices = devices.to_devices()
+    rng = rng or np.random.default_rng(ltfl.seed)
+    u = len(devices)
+    if range_sq_sums is None:
+        range_sq_sums = [1e-2 * num_params] * u
+    w = ltfl.wireless
+
+    powers = np.full(u, 0.5 * (w.p_min + w.p_max))
+    deltas = np.full(u, ltfl.delta_max, dtype=np.int64)
+    prev_gamma = np.inf
+    trace = []
+
+    for k in range(ltfl.alt_max_iters):
+        rhos, deltas = _stage1_reference(ltfl, devices, deltas, powers,
+                                         num_params)
+
+        def objective(p_vec: np.ndarray) -> float:
+            g, feasible = _evaluate_reference(ltfl, devices, range_sq_sums,
+                                              rhos, deltas, p_vec, num_params)
+            return g if feasible else g + _PENALTY
+
+        bounds = np.tile([[w.p_min, w.p_max]], (u, 1))
+        res = bayesopt.minimize(objective, bounds, iters=ltfl.bo_iters,
+                                rng=rng, xi=ltfl.bo_xi)
+        powers = res.x_best
+
+        g, _ = _evaluate_reference(ltfl, devices, range_sq_sums, rhos, deltas,
+                                   powers, num_params)
+        trace.append(g)
+        if verbose:
+            print(f"[controller] k={k} gamma={g:.6g} "
+                  f"rho_mean={rhos.mean():.3f} delta_mean={deltas.mean():.2f}")
+        if abs(prev_gamma - g) <= ltfl.alt_tol:          # Eq. 57
+            prev_gamma = g
+            break
+        prev_gamma = g
+
+    rhos, deltas = _stage1_reference(ltfl, devices, deltas, powers,
+                                     num_params)
+    final_gamma, _ = _evaluate_reference(ltfl, devices, range_sq_sums, rhos,
+                                         deltas, powers, num_params)
+
+    pers = np.array([float(packet_error_rate(w, d, np.asarray(p)))
+                     for d, p in zip(devices, powers)])
     return ControlDecision(rho=rhos, delta=deltas, power=powers, per=pers,
                            gamma=float(final_gamma), alternations=k + 1,
                            gamma_trace=np.asarray(trace))

@@ -1,7 +1,8 @@
 """Convergence-gap analytics (paper Theorem 1, Eq. 28-30), host half.
 
 Held against ``repro.core.convergence`` (``GapTerms``, ``gap_terms``,
-``gamma``, lines 61-147): the same float64 numpy arithmetic, bitwise.
+``gamma``, lines 61-147; ``theorem1_bound``, lines 197-203): the same
+float64 numpy arithmetic, bitwise.
 
 Gamma^n (Eq. 29) decomposes the per-round convergence gap into the
 quantization, pruning and transmission error terms. ``gap_terms`` reduces
@@ -102,6 +103,15 @@ def gamma(ltfl: LTFLConfig, range_sq_sums, deltas, rhos, pers,
     """Gamma^n (Eq. 29); scalar for (U,) inputs, (K,) for (K, U) inputs."""
     return gap_terms(ltfl, range_sq_sums, deltas, rhos, pers,
                      num_samples, **kw).total
+
+
+def theorem1_bound(ltfl: LTFLConfig, f0_minus_fstar: float,
+                   gammas: Sequence[float]) -> float:
+    """Eq. 28: average gradient-norm bound after len(gammas) rounds."""
+    omega_plus_1 = max(len(gammas), 1)
+    head = (2.0 * ltfl.lipschitz * f0_minus_fstar
+            / ((1.0 - 12.0 * ltfl.v2) * omega_plus_1))
+    return head + float(np.mean(gammas)) if gammas else head
 
 
 def gamma_dev(ltfl: LTFLConfig,

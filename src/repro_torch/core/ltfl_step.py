@@ -3,8 +3,10 @@
 Held against ``repro.core.ltfl_step.make_fl_train_step``: both prune
 kinds (``"magnitude"``, the edge step; ``"block"``, the datacenter
 step, with ``prune_block``), host-sampled ``alpha`` or the in-step
-packet-drop draw from ``drop_prob``, and the optional ``agg_denom`` and
-``lr`` controls. One call does all tensor work of a round:
+packet-drop draw from ``drop_prob``, the optional ``agg_denom`` and
+``lr`` controls, a compressor given by registry name, and the int8 wire
+format (``int8_collective``); and against ``make_plain_train_step``.
+One call does all tensor work of a round:
 
 1. prune the global weights per client (Eq. 12-13): each leaf's
    importance is computed and ranked once (for block pruning the tile
@@ -20,7 +22,20 @@ packet-drop draw from ``drop_prob``, and the optional ``agg_denom`` and
 4. the packet outcomes: the host's ``alpha``, or alpha = uniform(C) >=
    drop_prob (Eq. 4) drawn in the step;
 5. the sample-weighted aggregate over received clients (Eq. 19) and the
-   SGD update (Eq. 20).
+   optimizer's update (Eq. 20).
+
+``int8_collective`` (reference lines 68, 97-100, 143-160) replaces step
+3 with the reference's wire format for its cross-client all-gather: per
+client and leaf, symmetric stochastic int8 levels at scale max(max|g| /
+127, 1e-30) (``quantization.quantize_int8``), dequantized to bfloat16
+and aggregated, so the aggregate is bfloat16 whatever the parameters'
+dtype, as in the reference. On one card there is no gather; the levels
+are what would cross it. ``delta`` is ignored, the compressor's state
+passes through and the B1 quantizer is not launched; with ``quantize``
+False the flag has no effect, and with an explicit ``compressor`` it
+raises. Its uniforms are drawn as the LTFL quantizer's are (one (C,
+*leaf) tensor at a time); ``int8_uniforms`` replaces that draw, shaped
+like ``ltfl_quantizer(uniforms=...)``.
 
 ``controls`` (tensors on the step's device):
     rho        (C,) pruning ratios
@@ -54,7 +69,8 @@ batch.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 from torch.func import grad_and_value, vmap
@@ -62,7 +78,10 @@ from torch.func import grad_and_value, vmap
 from repro_torch.core.aggregation import aggregate
 from repro_torch.core.compressors import (
     Compressor,
+    UniformSource,
+    get_compressor,
     identity_compressor,
+    lane_uniforms,
     ltfl_quantizer,
 )
 from repro_torch.core.pruning import (
@@ -70,7 +89,11 @@ from repro_torch.core.pruning import (
     magnitude_prune_pytree,
     prune_pytree,
 )
-from repro_torch.core.quantization import range_sq_sum
+from repro_torch.core.quantization import (
+    dequantize_int8,
+    quantize_int8_clients,
+    range_sq_sum,
+)
 from repro_torch.optim import Optimizer, apply_updates, global_norm
 
 Tree = Dict[str, torch.Tensor]
@@ -94,23 +117,33 @@ def make_fl_train_step(model, optimizer: Optimizer, n_clients: int, *,
                        prune: bool = True,
                        prune_kind: str = "block",
                        simulate_drops: bool = True,
-                       compressor: Optional[Compressor] = None,
-                       drop_uniforms: Optional[DropSource] = None
+                       compressor: Union[Compressor, str, None] = None,
+                       drop_uniforms: Optional[DropSource] = None,
+                       int8_collective: bool = False,
+                       int8_uniforms: Optional[UniformSource] = None
                        ) -> Callable:
     """Build step(params, opt_state, comp_state, batch, controls, seed)
     -> (params, opt_state, comp_state, metrics).
 
     ``batch`` leaves carry a leading client axis C == n_clients;
     ``seed`` is the round's integer seed (the reference's key is
-    ``PRNGKey(seed)``). ``compressor`` None picks the LTFL quantizer (or
+    ``PRNGKey(seed)``). ``compressor`` is a ``Compressor``, a registry
+    name (``get_compressor``) or None, which picks the LTFL quantizer (or
     identity when ``quantize`` is False). Without ``controls["alpha"]``
     every client is received (``simulate_drops`` False) or drops with
-    probability ``controls["drop_prob"]``."""
+    probability ``controls["drop_prob"]``. ``int8_collective``: see the
+    module docstring."""
+    if compressor is None:
+        comp = ltfl_quantizer() if quantize else identity_compressor()
+    else:
+        if int8_collective:
+            raise ValueError(
+                "int8_collective is a wire-format override; "
+                "pass compressor=None")
+        comp = get_compressor(compressor)
     if prune_kind not in ("block", "magnitude"):
         raise ValueError(f"prune_kind={prune_kind!r}")
-    if compressor is None:
-        compressor = ltfl_quantizer() if quantize else identity_compressor()
-    comp = compressor
+    int8_wire = quantize and int8_collective
     per_client = grad_and_value(model.loss)
 
     def _prune(params: Tree, rho: torch.Tensor) -> Tuple[Tree, Tree]:
@@ -165,11 +198,13 @@ def make_fl_train_step(model, optimizer: Optimizer, n_clients: int, *,
         if prune:
             grads = gate_pytree(grads, masks, prune_block)
         rsqs = range_sq_sum(grads, client_axis=True)
-        delta = (controls_l[0]["delta"] if n_lanes == 1 else
-                 torch.cat([c["delta"] for c in controls_l]))
-        grads, comp_state = comp.compress(
-            grads, delta, seeds[0] if n_lanes == 1 else tuple(seeds),
-            comp_state)
+        seed = seeds[0] if n_lanes == 1 else tuple(seeds)
+        if int8_wire:
+            grads = _int8_wire(grads, seed, int8_uniforms)
+        else:
+            delta = (controls_l[0]["delta"] if n_lanes == 1 else
+                     torch.cat([c["delta"] for c in controls_l]))
+            grads, comp_state = comp.compress(grads, delta, seed, comp_state)
 
         rows = [slice(i * n_clients, (i + 1) * n_clients)
                 for i in range(n_lanes)]
@@ -217,6 +252,43 @@ def make_fl_train_step(model, optimizer: Optimizer, n_clients: int, *,
     step.lanes = lanes
     step.init_comp_state = lambda params: comp.init_state(params, n_clients)
     return step
+
+
+def make_plain_train_step(model, optimizer: Optimizer) -> Callable:
+    """Non-federated step on one global batch: step(params, opt_state,
+    batch, seed) -> (params, opt_state, {"loss", "grad_norm"}). No client
+    axis, no pruning, no quantizer; ``seed`` is unused, as the
+    reference's key is. Held against
+    ``repro.core.ltfl_step.make_plain_train_step`` (lines 204-214)."""
+    loss_and_grad = grad_and_value(model.loss)
+
+    def step(params: Tree, opt_state: Any, batch: Dict[str, torch.Tensor],
+             seed) -> Tuple[Tree, Any, Dict[str, torch.Tensor]]:
+        g, loss = loss_and_grad(params, batch)
+        updates, opt_state = optimizer.update(g, opt_state, params)
+        params = apply_updates(params, updates)
+        return params, opt_state, {"loss": loss, "grad_norm": global_norm(g)}
+
+    return step
+
+
+def _int8_wire(grads: Tree, seed, uniforms: Optional[UniformSource]
+               ) -> Tree:
+    """The int8 wire format of the stacked (C, ...) gradients: per client
+    and leaf, int8 levels and a float32 scale, dequantized to bfloat16.
+    One leaf's uniforms are held at a time."""
+    leaves = list(grads.values())
+    n_clients = leaves[0].shape[0]
+    device = leaves[0].device
+    shapes = [tuple(x.shape[1:]) for x in leaves]
+    rands = lane_uniforms(seed, n_clients, shapes, device, uniforms)
+    out = {}
+    for (name, x), r in zip(grads.items(), rands):
+        levels, scales = quantize_int8_clients(x, r.to(device))
+        del r
+        view = (n_clients,) + (1,) * (x.dim() - 1)
+        out[name] = dequantize_int8(levels, scales.reshape(view))
+    return out
 
 
 def _per_client(x: torch.Tensor, leaf: torch.Tensor,

@@ -2,6 +2,9 @@
 
 Held against ``repro.core.pruning``:
 
+* ``importance`` (Eq. 12, line 29), ``pruning_error_bound`` (Lemma 2,
+  line 163) and ``actual_pruning_error`` (line 168, a float32 sum over
+  leaves in leaf order);
 * ``magnitude_prune`` / ``magnitude_prune_pytree`` — the paper's
   importance I_v = |w_v| (Eq. 12): the smallest floor(rho * n) entries of
   each >= 2-D leaf are zeroed, 1-D leaves are exempt (the edge step).
@@ -37,6 +40,11 @@ from repro_torch.kernels.block_prune import apply_block_mask, block_norms
 
 Tree = Dict[str, torch.Tensor]
 BLOCK = 128
+
+
+def importance(w: torch.Tensor) -> torch.Tensor:
+    """Eq. 12 importance: |w|."""
+    return torch.abs(w)
 
 
 def magnitude_prune(w: torch.Tensor, rho) -> Tuple[torch.Tensor,
@@ -147,3 +155,19 @@ def element_masks(w: Tree, masks: Tree, block: int = BLOCK) -> Tree:
             grid.shape[:-2] + (grid.shape[-2], block, grid.shape[-1], block))
         out[name] = full.reshape(lead + tuple(w[name].shape))
     return out
+
+
+def pruning_error_bound(rho, d_sq: float):
+    """Lemma 2:  E||w - w_hat||^2 <= rho * D^2."""
+    return rho * d_sq
+
+
+def actual_pruning_error(w: Tree, pruned: Tree) -> torch.Tensor:
+    """||w - w_hat||^2 over the tree, each leaf's sum in float32, summed
+    in leaf order (used by property tests against Lemma 2)."""
+    total = None
+    for k, a in w.items():
+        d = (a - pruned[k]).to(torch.float32)
+        s = torch.sum(d * d)
+        total = s if total is None else total + s
+    return total

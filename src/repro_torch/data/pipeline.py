@@ -1,13 +1,14 @@
 """Minimal batching pipeline for the federated loop.
 
-Held against ``repro.data.pipeline`` (``ArrayDataset`` with ``epochs``,
-``ClientBatcher`` with ``client_sizes`` and ``padded_parts``): host numpy
-on both sides, so batch indices drawn from a seeded stream are bitwise
-equal. ``ClientBatcher`` owns every client's index partition into one
-shared backing dataset and draws the stacked (C, B) index matrix the
-round step consumes; the runner gathers it and moves it to the device.
-The scanned engine's device rng instead uploads ``padded_parts``, the
-(N, W) zero-padded index table, and draws from it on the device.
+Held against ``repro.data.pipeline`` (``ArrayDataset`` with ``subset``
+and ``epochs``, ``ClientBatcher`` with ``client_sizes`` and
+``padded_parts``): host numpy on both sides, so batch indices drawn from
+a seeded stream are bitwise equal. ``ClientBatcher`` owns every client's
+index partition into one shared backing dataset and draws the stacked
+(C, B) index matrix the round step consumes; the runner gathers it and
+moves it to the device. The scanned engine's device rng instead uploads
+``padded_parts``, the (N, W) zero-padded index table, and draws from it
+on the device.
 """
 from __future__ import annotations
 
@@ -27,6 +28,9 @@ class ArrayDataset:
             raise ValueError(f"ragged dataset: {sizes}")
         self.arrays = arrays
         self.size = next(iter(sizes.values()))
+
+    def subset(self, idx: np.ndarray) -> "ArrayDataset":
+        return ArrayDataset({k: v[idx] for k, v in self.arrays.items()})
 
     def batch(self, batch_size: int, rng: np.random.Generator
               ) -> Dict[str, np.ndarray]:

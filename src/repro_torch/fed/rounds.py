@@ -1,7 +1,8 @@
 """The paper-scale federated round engine (edge mode).
 
-Held against ``repro.fed.rounds`` (``FedRunner``, ``RoundRecord`` with
-its async ``staleness``, ``HostRoundInputs``, ``evaluate``). One round
+Held against ``repro.fed.rounds`` (``FedRunner`` with its legacy
+``devices`` view, ``RoundRecord`` with its async ``staleness``,
+``HostRoundInputs``, ``evaluate``). One round
 (Section 2, Eq. 8-10/14-20):
 
   1. the scheme supplies vectorized controls (rho_u, delta_u, p_u) — for
@@ -232,6 +233,13 @@ class FedRunner:
                 self.num_params, self.eval_every, self.participation,
                 self.block_fading, str(self.device),
                 int(self.ltfl.bo_iters), int(self.ltfl.alt_max_iters))
+
+    @property
+    def devices(self):
+        """Legacy tuple-of-``DeviceChannel`` view of the cohort channel
+        (reference lines 274-277), what ``controller.solve_reference``
+        takes."""
+        return self.channel.to_devices()
 
     @property
     def channel_epoch(self) -> int:

@@ -15,4 +15,27 @@ Every Pallas kernel of the reference has its counterpart here. Kernels
 build with nvcc at first use (``build.py``); nothing here builds or imports a compiler when
 the package is imported. ``ref.py`` holds the plain versions, ``ops.py``
 the wrappers' public entry points.
+
+The package exports the reference's names (``repro.kernels``): ``ops``,
+``ref``, ``stochastic_quant`` (the static-bits entry point,
+``stochastic_quant.stochastic_quant_static``), ``block_norms``,
+``apply_block_mask`` and ``block_sparse_matmul``. As in the reference,
+``stochastic_quant`` and ``block_sparse_matmul`` are then the functions,
+not the submodules, as attributes of this package: reach a submodule's
+other names with ``from repro_torch.kernels.<module> import <name>`` or
+``importlib.import_module``.
 """
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.block_prune import apply_block_mask, block_norms
+from repro_torch.kernels.block_sparse_matmul import block_sparse_matmul
+from repro_torch.kernels.stochastic_quant import \
+    stochastic_quant_static as stochastic_quant
+
+__all__ = [
+    "ops",
+    "ref",
+    "stochastic_quant",
+    "block_norms",
+    "apply_block_mask",
+    "block_sparse_matmul",
+]

@@ -3,6 +3,10 @@ uniform draws and tile ranking happen here, outside the kernels.
 
 Held against ``repro.kernels.ops``:
 
+* ``quantize_dequantize_2d`` (lines 23-27), static bits on one 2-D
+  tensor: the dynamic path with one client row, one launch;
+* ``kernel_quant_compatible`` (lines 30-43), the reference's shape
+  predicate;
 * ``quantize_dequantize_2d_dyn`` (lines 46-57), batched over clients: the
   reference computes one range per tensor inside a vmap over clients;
   here g carries the client axis and each client's row gets its own
@@ -34,7 +38,9 @@ from repro_torch.kernels.block_prune import (
     apply_block_mask,
     block_norms,
 )
-from repro_torch.kernels import block_sparse_matmul as _bsmm
+from repro_torch.kernels.block_sparse_matmul import DEFAULT_BLOCKS
+from repro_torch.kernels.block_sparse_matmul import \
+    block_sparse_matmul as _block_sparse_matmul
 from repro_torch.kernels.stochastic_quant import stochastic_quant
 
 
@@ -42,6 +48,41 @@ def level_counts(bits: torch.Tensor) -> torch.Tensor:
     """n_levels = max(round(2^bits) - 1, 1), f32 (per client)."""
     bits = bits.to(torch.float32)
     return torch.clamp(torch.round(torch.pow(2.0, bits)) - 1.0, min=1.0)
+
+
+def quantize_dequantize_2d(g: torch.Tensor, bits: float, *,
+                           rand: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None
+                           ) -> torch.Tensor:
+    """Kernel-backed Q(g) of one 2-D tensor at a static bit-width: one
+    launch, with the reference's n_levels = max(round(2^bits) - 1, 1).
+    ``rand`` (g's shape, f32) or ``generator`` supplies the uniforms, as
+    in ``quantize_dequantize_2d_dyn``."""
+    if g.dim() != 2:
+        raise ValueError(f"g must be (M, N), got {tuple(g.shape)}")
+    bits = torch.full((1,), float(bits), dtype=torch.float32,
+                      device=g.device)
+    out = quantize_dequantize_2d_dyn(
+        g.reshape(1, -1), bits, generator=generator,
+        rand=None if rand is None else rand.reshape(1, -1))
+    return out.reshape(g.shape)
+
+
+def kernel_quant_compatible(shape: Tuple[int, ...],
+                            block=(256, 256)) -> bool:
+    """The reference's predicate: True when a >= 2-D shape, viewed as
+    (prod(leading), last), tiles evenly by ``block``. It reports which
+    leaves the reference sends to its TPU kernel; the CUDA kernel takes
+    any length, so no path here branches on it."""
+    if len(shape) < 2:
+        return False
+    m = 1
+    for d in shape[:-1]:
+        m *= d
+    n = shape[-1]
+    if m == 0 or n == 0:
+        return False
+    return m % min(block[0], m) == 0 and n % min(block[1], n) == 0
 
 
 def quantize_dequantize_2d_dyn(g: torch.Tensor, bits: torch.Tensor, *,
@@ -102,14 +143,14 @@ def block_prune_2d(w: torch.Tensor, rho, block=DEFAULT_BLOCK
 
 
 def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
-                        blocks=_bsmm.DEFAULT_BLOCKS) -> torch.Tensor:
+                        blocks=DEFAULT_BLOCKS) -> torch.Tensor:
     """x @ w skipping the pruned (bk, bn) tiles of w; blocks = (bm, bn,
     bk)."""
-    return _bsmm.block_sparse_matmul(x, w, mask, blocks=blocks)
+    return _block_sparse_matmul(x, w, mask, blocks=blocks)
 
 
 def pruned_matmul(x: torch.Tensor, w: torch.Tensor, rho: float,
-                  blocks=_bsmm.DEFAULT_BLOCKS) -> torch.Tensor:
+                  blocks=DEFAULT_BLOCKS) -> torch.Tensor:
     """Block-prune w at ratio rho with (bk, bn) tiles, then the
     block-sparse product with the unpruned w and the tile mask."""
     _, mask = block_prune_2d(w, rho, block=(blocks[2], blocks[1]))

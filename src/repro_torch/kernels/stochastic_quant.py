@@ -10,6 +10,9 @@ clients of a leaf, with one [lo, hi, n_levels] row per client.
 ``stochastic_quant`` is the wrapper. A CPU tensor goes to the plain
 version (``kernels.ref.stochastic_quant_ref``); a CUDA tensor goes to the
 kernel or the wrapper raises. ``LAUNCHES`` counts kernel launches.
+``stochastic_quant_static`` is the counterpart of the reference's
+static-bits ``stochastic_quant`` (lines 22-34), a wrapper over the same
+kernel body: one launch of this kernel with one client row.
 """
 from __future__ import annotations
 
@@ -83,3 +86,21 @@ def stochastic_quant(g: torch.Tensor, rand: torch.Tensor,
                            f"{err}")
     LAUNCHES[NAME] += 1
     return out
+
+
+def stochastic_quant_static(g: torch.Tensor, rand: torch.Tensor, lo, hi,
+                            bits: int) -> torch.Tensor:
+    """Q(g) of one (M, N) tensor at a static bit-width: g f32/bf16, rand
+    (M, N) f32, lo / hi scalars (the range of |g|). Held against
+    ``repro.kernels.stochastic_quant.stochastic_quant`` (lines 22-34),
+    whose TPU tiling arguments (``block``, ``interpret``) have no
+    counterpart here: g is viewed as one client row (1, M * N) and the
+    batched kernel runs once with the row [lo, hi, 2^bits - 1]."""
+    if g.dim() != 2:
+        raise ValueError(f"g must be (M, N), got {tuple(g.shape)}")
+    row = [torch.as_tensor(x, dtype=torch.float32, device=g.device)
+           .reshape(()) for x in (lo, hi, float(2 ** bits - 1))]
+    out = stochastic_quant(g.reshape(1, -1).contiguous(),
+                           rand.reshape(1, -1).contiguous(),
+                           torch.stack(row).reshape(1, 3))
+    return out.reshape(g.shape)

@@ -2,9 +2,12 @@
 
 from repro_torch.optim.optimizers import (
     Optimizer,
+    adamw,
     apply_updates,
     global_norm,
+    momentum,
     sgd,
 )
 
-__all__ = ["Optimizer", "sgd", "apply_updates", "global_norm"]
+__all__ = ["Optimizer", "sgd", "momentum", "adamw", "apply_updates",
+           "global_norm"]

@@ -5,9 +5,14 @@ module of ``repro_torch`` (the scanned and async engines, the device
 samplers and the checkpoints among them); no source file of the port,
 no ``examples/torch_*.py`` script, nor ``chip_smoke.py``, has an import
 statement of ``jax`` or ``repro`` (docstrings that name a reference
-module are fine); and the port's sweep, controller and async-service
-examples run with both blocked.
+module are fine); and the port's sweep, controller, async-service and batched-serving
+examples run with both blocked. ``repro_torch.core`` and
+``repro_torch.kernels`` export the reference packages' names without
+building or loading a kernel, and the kernel submodules that those
+exports shadow stay reachable (the package first, then ``ops``; the
+launch counters as ``chip_smoke.py`` reads them).
 """
+import ast
 import os
 import re
 import subprocess
@@ -53,7 +58,7 @@ def test_port_imports_without_jax():
 def test_no_jax_or_reference_import_statements():
     files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
              + sorted((ROOT / "examples").glob("torch_*.py")))
-    assert len(list((ROOT / "examples").glob("torch_*.py"))) == 5
+    assert len(list((ROOT / "examples").glob("torch_*.py"))) == 6
     assert len(files) > 20
     for f in files:
         hits = IMPORT_RE.findall(f.read_text())
@@ -203,3 +208,119 @@ def test_serve_launcher_defaults_to_cuda_and_runs_on_the_cpu_when_asked():
     assert lines[2].startswith("generated ids[0]: [")
     assert len(lines[2].split(": [")[1].split(",")) == 16
 
+
+
+def _reference_all(package):
+    """``__all__`` of a reference package's ``__init__``, read with ast
+    (no jax needed)."""
+    tree = ast.parse((ROOT / "src" / "repro" / package / "__init__.py")
+                     .read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"no __all__ in repro.{package}")
+
+
+_EXPORTS = """
+import sys, types
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import repro_torch.core as core
+import repro_torch.kernels as kernels
+from repro_torch.kernels import build
+assert build._loaded == {}, build._loaded
+assert not build.BUILD_DIR.exists() or sys.argv[1] == "built"
+for pkg in (core, kernels):
+    for name in pkg.__all__:
+        assert getattr(pkg, name) is not None, name
+assert isinstance(core.quantization, types.ModuleType)
+assert isinstance(kernels.ops, types.ModuleType)
+assert callable(kernels.stochastic_quant) and callable(core.make_plain_train_step)
+print(" ".join(core.__all__))
+print(" ".join(kernels.__all__))
+"""
+
+
+def test_core_and_kernels_export_the_reference_names_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    built = (PORT / "kernels" / "_build").exists()
+    out = subprocess.run([sys.executable, "-c", _EXPORTS,
+                          "built" if built else "clean"], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    core_names, kernel_names = (l.split() for l in
+                                out.stdout.strip().splitlines())
+    assert core_names == _reference_all("core")
+    assert kernel_names == _reference_all("kernels")
+
+
+_SHADOW = """
+import importlib, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import repro_torch.kernels
+import repro_torch.kernels.ops as ops
+import torch
+from repro_torch.kernels.block_sparse_matmul import DEFAULT_BLOCKS
+from repro_torch.kernels.ref import block_sparse_matmul_ref
+# the exports shadow their submodules, as the reference's do
+assert not hasattr(repro_torch.kernels.stochastic_quant, "LAUNCHES")
+assert not hasattr(repro_torch.kernels.block_sparse_matmul, "LAUNCHES")
+gen = torch.Generator().manual_seed(0)
+x = torch.randn(64, 96, generator=gen)
+w = torch.randn(96, 128, generator=gen)
+out = ops.pruned_matmul(x, w, 0.25, blocks=(32, 32, 32))
+_, mask = ops.block_prune_2d(w, 0.25, block=(32, 32))
+assert torch.equal(out, block_sparse_matmul_ref(x, w, mask, 32, 32))
+assert DEFAULT_BLOCKS == (128, 128, 128)
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+mods = chip_smoke.kernel_modules("stochastic_quant", "block_prune",
+                                 "block_sparse_matmul")
+for name, m in zip(("stochastic_quant", "block_prune",
+                    "block_sparse_matmul"), mods):
+    assert m is importlib.import_module("repro_torch.kernels." + name)
+print(sorted(chip_smoke.all_launches().items()))
+"""
+
+
+def test_kernel_submodules_stay_reachable_behind_the_exports():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = subprocess.run([sys.executable, "-c", _SHADOW, str(ROOT)],
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    launches = dict(eval(out.stdout.strip()))
+    assert set(launches) == {"stochastic_quant", "block_norms",
+                             "apply_block_mask", "block_sparse_matmul",
+                             "block_sparse_matmul_wgmma",
+                             "block_sparse_matmul_simt"}
+    assert set(launches.values()) == {0}      # the CPU launches nothing
+
+
+def test_serve_batched_example_runs_without_jax_on_the_cpu():
+    probe = ("import runpy, sys; sys.modules['jax'] = None; "
+             "sys.modules['repro'] = None; sys.argv = sys.argv[1:]; "
+             "runpy.run_path(sys.argv[0], run_name='__main__')")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    env["OMP_NUM_THREADS"] = "1"
+    out = subprocess.run(
+        [sys.executable, "-c", probe,
+         str(ROOT / "examples" / "torch_serve_batched.py"),
+         "--device", "cpu", "--batch", "2", "--prompt-len", "8",
+         "--gen", "5"], env=env, capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0] == ("serving reduced granite-8b (2L d=256 "
+                        "family=dense) on cpu")
+    assert lines[1].startswith("prefill 2x8: ")
+    assert lines[2].startswith("generated 5 tokens/seq in ")
+    assert lines[2].endswith(" tok/s)")
+    assert [l.split(":")[0] for l in lines[3:]] == ["request 0",
+                                                    "request 1"]
+    assert len(lines[3].split(": [")[1].split(",")) == 5
