@@ -292,6 +292,34 @@ Phases; any failure exits non-zero before the result lines:
    ``examples/torch_serve_batched.py`` at its defaults as a subprocess:
    exit 0 and its tok/s.
 
+29. the launch tooling (ROADMAP A8): (a) the dry run
+   (``python -m repro_torch.launch.dryrun``, each pair in its own
+   process under a fake process group, all started together at the
+   phase's start): granite-8b x train_4k on the production (16, 16) and
+   (2, 16, 16) meshes and the reference's three CI pairs on the (2, 4)
+   test mesh (granite-8b x decode_32k, whisper-medium x prefill_32k,
+   granite-8b x train_4k as a scanned segment of 2 rounds); each record
+   printed with ``fits_hbm`` against 80 GB; (b) the sharded step
+   (``make_fl_train_step(param_shardings=, gather_shardings=)``) on an
+   NCCL world of one and a ("data", "model") = (1, 1) ``DeviceMesh``,
+   params DTensors placed by the rule table, phase 9's run (granite-8b at
+   its published widths, 2 layers, the launcher's defaults), 3 steps
+   with SGD and 3 with the int8 wire format against the plain-tensor step
+   on the same weights, batch and draws: losses and updated weights
+   bitwise equal, launches counted from 0 each step 12 / 9 / 18
+   (``stochastic_quant`` / ``block_norms`` / ``apply_block_mask``) and
+   0 / 9 / 18 under int8; (c) the dry run of exactly (b)'s step on meta
+   tensors at (1, 1): its per-device FLOPs equal ``FlopCounterMode``'s
+   count of the real step on the card and its parameter bytes the real
+   ones; predicted and measured peak bytes with their ratio, the
+   roofline's ``t_compute`` and ``t_memory`` beside the measured step
+   time (its ``hbm_bytes`` hold the kernels' reads, which their
+   wrappers report); (d) phase 9's step with ``remat`` on and off, each
+   from a fresh run with nothing of (b) and (c) alive: the first loss
+   (the forward alone) bitwise, the later losses, the first step's
+   aggregate norm and the weights after the last step within
+   ``REMAT_*_REL`` of each other, both peaks and both step times.
+
 ``--profile DIR`` also writes torch.profiler tables of one edge round
 (``DIR/profile_round.txt``), one datacenter step
 (``DIR/profile_step.txt``; phase 18's ``profile_step_<arch>.txt``), one
@@ -3768,6 +3796,285 @@ def phase_host_leftovers(mats, dc_records, dc_peak):
             "plain": plain, "example_tok_s": tok_s}
 
 
+DRYRUN_PAIRS = (
+    ("granite-8b", "train_4k", [], "{}"),
+    ("granite-8b", "train_4k", ["--multi-pod"], "{}"),
+    ("granite-8b", "decode_32k", ["--test-mesh"], "{}"),
+    ("whisper-medium", "prefill_32k", ["--test-mesh"], "{}"),
+    ("granite-8b", "train_4k", ["--test-mesh"], '{"scan": 2}'),
+)
+LAUNCH_STEPS = 3                        # phase 29 (b): steps a variant
+# phase 29 (d), remat on against off (relative), about ten times what
+# the H100 80GB HBM3 (700 W) reads: the losses of steps 1-2 (1.2e-4 at
+# most; stochastic levels flip where the bf16 gradients round apart), the
+# first step's aggregate norm (2.8e-5), and the L2 of every weight after
+# the last step (1.8e-4). A wrong recompute or VJP moves the norm by far
+# more. The first loss, the forward's alone, is held bitwise.
+REMAT_LOSS_REL = 1e-3
+REMAT_NORM_REL = 3e-4
+REMAT_WEIGHT_REL = 2e-3
+
+
+def _start_dryruns(out_dir: Path):
+    """Phase 29 (a)'s dry runs, each in its own process, started now."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    procs = []
+    for i, (arch, shape, flags, variant) in enumerate(DRYRUN_PAIRS):
+        d = out_dir / f"pair{i}"
+        procs.append((d, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, *flags, "--variant", variant,
+             "--out", str(d)], env=env, cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def _finish_dryruns(procs):
+    records = []
+    for (d, p), (arch, shape, flags, variant) in zip(procs, DRYRUN_PAIRS):
+        try:
+            out, err = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            fail(f"dry run {arch} x {shape} {flags} timed out")
+        files = sorted(d.glob("*.json"))
+        if p.returncode != 0 or "dry-run complete" not in out \
+                or len(files) != 1:
+            fail(f"dry run {arch} x {shape} {flags} {variant}: exit "
+                 f"{p.returncode}\n{out}{err[-3000:]}")
+        rec = json.loads(files[0].read_text())
+        records.append(rec)
+        log(f"[launch] dry run {rec['arch']} x {rec['shape']} on "
+            f"{rec['mesh']} {rec['variant']}: fits_hbm={rec['fits_hbm']} "
+            f"(80 GB) bytes_per_device={rec['bytes_per_device']!r} "
+            f"flops_per_device={rec['flops_per_device']!r} "
+            f"collectives={rec['collective_count']} "
+            f"wire={rec['collective_wire_bytes']!r} "
+            f"t_compute={rec['t_compute']!r} t_memory={rec['t_memory']!r} "
+            f"t_collective={rec['t_collective']!r} "
+            f"bottleneck={rec['bottleneck']} "
+            f"useful={rec['useful_ratio']!r} run_s="
+            f"{rec['compile_seconds']!r}")
+    return records
+
+
+def _step_launches(fn):
+    """(result, {kernel: launches}) of ``fn()``, counted from 0."""
+    modules = kernel_modules("stochastic_quant", "block_prune",
+                             "block_sparse_matmul")
+    for m in modules:
+        for k in m.LAUNCHES:
+            m.LAUNCHES[k] = 0
+    out = fn()
+    return out, {k: v for m in modules for k, v in m.LAUNCHES.items()}
+
+
+def phase_launch_tooling(dc_records, dc_peak):
+    """Phase 29: the dry run, the sharded step on a (1, 1) mesh against
+    the plain step, the dry run against the card, and remat."""
+    import gc
+    import os
+    import socket
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.ltfl_step import make_fl_train_step
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    t0 = time.time()
+    tmp = Path(tempfile.mkdtemp(prefix="dryrun_torch_"))
+    procs = _start_dryruns(tmp)
+    # (b) the sharded step on an NCCL world of one
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    try:
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=1)
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    except Exception as e:                                    # noqa: BLE001
+        fail(f"NCCL world of one: {type(e).__name__}: {e}")
+    args = train.build_parser().parse_args([])
+    c = args.clients
+    run = train.DatacenterRun(dc_arch(), args, "cuda")
+    model = run.model
+    rules = sh.base_rules(mesh, client_axes=("data",))
+    psh = sh.param_shardings(mesh, model, rules)
+    stacked = sh.stacked_shardings(mesh, model, rules, c, "client")
+    gather = sh.stacked_shardings(mesh, model, rules, c, None)
+    bsh = sh.batch_shardings(mesh, rules, run.batch, leading="client")
+    dbatch = {k: sh.distribute(v, bsh[k]) for k, v in run.batch.items()}
+    want = {"stochastic_quant": 12, "block_norms": 9, "apply_block_mask": 18,
+            "block_sparse_matmul": 0, "block_sparse_matmul_wgmma": 0,
+            "block_sparse_matmul_simt": 0}
+    result = {}
+    for int8 in (False, True):
+        label = "int8" if int8 else "sgd"
+        kw = dict(prune_block=args.prune_block, prune_kind="block",
+                  int8_collective=int8)
+        plain = make_fl_train_step(model, sgd(args.lr), c, **kw)
+        sharded = make_fl_train_step(model, sgd(args.lr), c,
+                                     param_shardings=stacked,
+                                     gather_shardings=gather, **kw)
+        p_plain = {k: v.clone() for k, v in run.params.items()}
+        p_sh = {k: sh.distribute(v.clone(), psh[k])
+                for k, v in run.params.items()}
+        rows = []
+        for i in range(LAUNCH_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            p_plain, _, _, m_plain = plain(p_plain, (), (), run.batch,
+                                           run.controls, i)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t1
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t1 = time.perf_counter()
+            (p_sh, _, _, m_sh), got = _step_launches(
+                lambda: sharded(p_sh, (), (), dbatch, run.controls, i))
+            torch.cuda.synchronize()
+            sh_s = time.perf_counter() - t1
+            peak = torch.cuda.max_memory_allocated() - base
+            w = {**want, "stochastic_quant": 0 if int8 else 12}
+            if got != w:
+                fail(f"sharded {label} step {i}: launches {got}, want {w}")
+            loss, loss_plain = float(m_sh["loss"]), float(m_plain["loss"])
+            if not math.isfinite(loss) or loss != loss_plain:
+                fail(f"sharded {label} step {i}: loss {loss!r} vs plain "
+                     f"{loss_plain!r}")
+            diff = [k for k in p_plain
+                    if not torch.equal(p_sh[k].to_local(), p_plain[k])]
+            if diff:
+                fail(f"sharded {label} step {i}: weights differ from the "
+                     f"plain step's at {diff}")
+            rows.append({"loss": loss, "step_s": sh_s, "plain_step_s":
+                         plain_s, "launches": got, "peak_above_base": peak})
+            log(f"[launch] sharded {label} step {i} on (1, 1): "
+                f"loss={loss!r} (plain {loss_plain!r}, bitwise) weights "
+                f"bitwise; step_s={sh_s!r} plain_step_s={plain_s!r} "
+                f"launches={got}")
+        result[label] = rows
+    # (c) the dry run of (b)'s step against the card
+    shape = ShapeConfig("phase9", args.seq_len, c * args.per_client_batch,
+                        "train")
+    built = dryrun_lib.build_train(
+        dc_arch(), shape, mesh, {"prune_block": args.prune_block},
+        n_clients=c)
+    counts, _, meta_s = dryrun_lib.measure(built)
+    sharded = make_fl_train_step(model, sgd(args.lr), c,
+                                 prune_block=args.prune_block,
+                                 prune_kind="block", param_shardings=stacked,
+                                 gather_shardings=gather)
+    p_sh = {k: sh.distribute(v.clone(), psh[k])
+            for k, v in run.params.items()}
+    real_param_bytes = sum(v.to_local().numel() * v.to_local().element_size()
+                           for v in p_sh.values())
+    real_args = real_param_bytes + sum(
+        v.to_local().numel() * v.to_local().element_size()
+        for v in dbatch.values()) + 4 * 4 * c + dryrun_lib.SEED_BYTES
+    sharded(p_sh, (), (), dbatch, run.controls, 0)            # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with FlopCounterMode(display=False) as fc:
+        sharded(p_sh, (), (), dbatch, run.controls, 1)
+    torch.cuda.synchronize()
+    measured_peak = torch.cuda.max_memory_allocated() - base + real_args
+    card_flops = fc.get_total_flops()
+    if int(counts["flops"]) != card_flops:
+        fail(f"dry-run FLOPs {counts['flops']!r} != FlopCounterMode's "
+             f"{card_flops} on the card")
+    if built.alias_bytes != real_param_bytes:
+        fail(f"dry-run parameter bytes {built.alias_bytes} != the card's "
+             f"{real_param_bytes}")
+    step_s = min(r["step_s"] for r in result["sgd"][1:])
+    t_compute = counts["flops"] / dryrun_lib.HW["peak_flops"]
+    t_memory = counts["hbm_bytes"] / dryrun_lib.HW["hbm_bw"]
+    log(f"[launch] dry run of (b)'s step at (1, 1) on meta ({meta_s:.2f} "
+        f"s): flops {int(counts['flops'])} == FlopCounterMode on the card "
+        f"{card_flops}; parameter bytes {built.alias_bytes} == "
+        f"{real_param_bytes}; peak predicted {counts['peak_bytes']!r} "
+        f"measured {measured_peak!r} (inputs + max_memory_allocated above "
+        f"them), ratio {counts['peak_bytes'] / measured_peak!r}; "
+        f"t_compute={t_compute!r} s t_memory={t_memory!r} s beside the "
+        f"measured step {step_s!r} s")
+    del p_sh, sharded
+    dist.destroy_process_group()
+    # (d) remat on and off, each from a fresh run with nothing of (b) and
+    # (c) alive (its peak reads as phase 9's): the same weights, batch
+    # and draws. The first loss is the forward's alone (bitwise); the
+    # later losses, the first step's aggregate norm and the weights after
+    # the last step hold the backward, where remat differs
+    del p_plain, dbatch, m_plain, m_sh, plain, run, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat_rows, weights = {}, {}
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run = train.DatacenterRun(dc_arch(), args, "cuda")
+        if not remat:
+            run.model = build_model(dc_arch(), remat=False)
+            run.step_fn = make_fl_train_step(run.model, run.opt, c,
+                                             prune_block=args.prune_block,
+                                             prune_kind="block")
+        recs = [run.step(i) for i in range(LAUNCH_STEPS)]
+        remat_rows[remat] = {"loss": [r["loss"] for r in recs],
+                             "grad_norm": [r["grad_norm"] for r in recs],
+                             "step_s": [r["seconds"] for r in recs],
+                             "peak": torch.cuda.max_memory_allocated()}
+        weights[remat] = {k: v.to("cpu") for k, v in run.params.items()}
+        del run, recs
+        gc.collect()
+    on, off = remat_rows[True], remat_rows[False]
+    num = den = 0.0
+    for k, w_off in weights[False].items():
+        a = weights[True][k].to("cuda", torch.float32)
+        b = w_off.to("cuda", torch.float32)
+        num += float(torch.sum(torch.square(a - b)))
+        den += float(torch.sum(torch.square(b)))
+        del a, b
+    del weights
+    w_rel = math.sqrt(num / den)
+    loss_rel = [abs(x - y) / abs(y) for x, y in zip(on["loss"], off["loss"])]
+    norm_rel = abs(on["grad_norm"][0] - off["grad_norm"][0]) \
+        / abs(off["grad_norm"][0])
+    if on["loss"][0] != off["loss"][0]:
+        fail(f"remat: first loss {on['loss'][0]!r} vs {off['loss'][0]!r} "
+             "(the forward alone: bitwise)")
+    if not (max(loss_rel) <= REMAT_LOSS_REL and norm_rel <= REMAT_NORM_REL
+            and w_rel <= REMAT_WEIGHT_REL):
+        fail(f"remat on vs off: losses {on['loss']} vs {off['loss']} (rel "
+             f"{loss_rel}, limit {REMAT_LOSS_REL}), first aggregate norm "
+             f"rel {norm_rel!r} (limit {REMAT_NORM_REL}), weights after "
+             f"step {LAUNCH_STEPS - 1} rel {w_rel!r} (limit "
+             f"{REMAT_WEIGHT_REL})")
+    log(f"[launch] remat on: loss={on['loss']} grad_norm={on['grad_norm']} "
+        f"step_s={on['step_s']} max_memory_allocated={on['peak']}; off: "
+        f"loss={off['loss']} grad_norm={off['grad_norm']} "
+        f"step_s={off['step_s']} max_memory_allocated={off['peak']} "
+        f"(phase 9, remat on: {[r['seconds'] for r in dc_records]} s, "
+        f"{dc_peak} bytes); loss rel {loss_rel} (first bitwise), first "
+        f"aggregate norm rel {norm_rel!r}, weights after step "
+        f"{LAUNCH_STEPS - 1} rel L2 {w_rel!r}")
+    torch.cuda.empty_cache()
+    records = _finish_dryruns(procs)
+    log(f"[launch] phase 29 in {time.time() - t0:.1f} s")
+    return {"steps": result, "dryrun": records,
+            "flops": int(counts["flops"]),
+            "peak_predicted": counts["peak_bytes"],
+            "peak_measured": measured_peak, "remat": remat_rows}
+
+
 def serve_arch(name: str):
     from repro_torch.configs import get_arch
     return get_arch(name)
@@ -3876,6 +4183,9 @@ def main() -> None:
     # the host leftovers: int8 wire format, momentum / AdamW, static bits
     host = phase_host_leftovers(mats, dc_records, dc_peak)
     stamp("28")
+    # the launch tooling: dry run, the sharded step, remat
+    tooling = phase_launch_tooling(dc_records, dc_peak)
+    stamp("29")
     log(f"[done] {time.time() - t_start:.1f} s")
 
     def per_family(key):
@@ -3885,6 +4195,11 @@ def main() -> None:
         """Phase 28's launches a step (the first step's; all equal)."""
         return {v: host[v]["per_step"][0][key]
                 for v in ("int8", "momentum", "adamw")}
+
+    def tooling_launches(key):
+        """Phase 29 (b)'s launches a step (the first step's; all equal)."""
+        return {v: tooling["steps"][v][0]["launches"][key]
+                for v in ("sgd", "int8")}
 
     def block_row(name, key, launches, err, extra):
         return {
@@ -3910,6 +4225,7 @@ def main() -> None:
             "largest_leaf_bound_ms": bt[f"{key}_largest_bound_ms"],
             "family_datacenter_launches": per_family(name),
             "host_leftover_launches_per_step": host_launches(name),
+            "sharded_step_launches_per_step": tooling_launches(name),
             **extra,
         }
 
@@ -3950,6 +4266,8 @@ def main() -> None:
         "static_bits_max_abs_err_f32": host["static_f32_err"],
         "static_bits_max_abs_err_bf16": host["static_bf16_err"],
         "host_leftover_launches_per_step": host_launches("stochastic_quant"),
+        "sharded_step_launches_per_step":
+            tooling_launches("stochastic_quant"),
     }, block_row("block_norms", "norms", dc_launches["block_norms"],
                  norm_err, {}),
         block_row("apply_block_mask", "mask",
@@ -3983,6 +4301,8 @@ def main() -> None:
         "largest_leaf_library_ms":
             st["per_shape"]["embed.head"]["library_ms"],
         "largest_leaf_bound_ms": st["per_shape"]["embed.head"]["bound_ms"],
+        "sharded_step_launches_per_step":
+            tooling_launches("block_sparse_matmul"),
         "path": {"wgmma": bsmm_launches["block_sparse_matmul_wgmma"],
                  "simt": bsmm_launches["block_sparse_matmul_simt"]},
         "check_paths": bsmm_checks,

@@ -36,7 +36,7 @@ def main():
 
     device = resolve_device(args.device)
     cfg = configs.reduce_for_smoke(configs.get_arch(args.arch))
-    model = build_model(cfg)
+    model = build_model(cfg, remat=False)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = model.init(gen)

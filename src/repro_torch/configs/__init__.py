@@ -5,8 +5,10 @@ ResNet, and the architecture registry.
 sliding-window variant in ``VARIANTS``; ``models.build_model`` builds
 every one of them (the dense, MoE and VLM families, the SSM rwkv6-7b,
 the hybrid zamba2-2.7b and the encoder-decoder whisper-medium).
-``get_arch``, ``list_archs`` and ``reduce_for_smoke`` behave as the
-reference's.
+``get_arch``, ``list_archs``, ``get_shape``, ``arch_for_shape`` (granite's
+sliding-window variant for ``long_500k``), ``shape_applicable`` and
+``reduce_for_smoke`` behave as the reference's; the dry-run shapes are
+``TRAIN_4K``, ``PREFILL_32K``, ``DECODE_32K`` and ``LONG_500K``.
 """
 from __future__ import annotations
 
@@ -25,7 +27,11 @@ from repro_torch.configs import (
     zamba2_2_7b,
 )
 from repro_torch.configs.base import (
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
     SHAPES,
+    TRAIN_4K,
     ArchConfig,
     LTFLConfig,
     MLAConfig,
@@ -33,6 +39,7 @@ from repro_torch.configs.base import (
     ShapeConfig,
     SSMConfig,
     WirelessConfig,
+    shape_applicable,
 )
 from repro_torch.configs.ltfl_paper import (
     CONFIG,
@@ -74,6 +81,18 @@ def get_arch(name: str) -> ArchConfig:
 
 def list_archs() -> List[str]:
     return sorted(ARCHS)
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def arch_for_shape(arch: ArchConfig, shape: ShapeConfig) -> ArchConfig:
+    """The documented per-shape variant: granite-8b runs ``long_500k``
+    with its 4096-token sliding window."""
+    if shape.name == "long_500k" and arch.name == "granite-8b":
+        return VARIANTS["granite-8b-sw4096"]
+    return arch
 
 
 def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:
@@ -141,6 +160,10 @@ __all__ = [
     "ARCHS",
     "VARIANTS",
     "SHAPES",
+    "TRAIN_4K",
+    "PREFILL_32K",
+    "DECODE_32K",
+    "LONG_500K",
     "ArchConfig",
     "ShapeConfig",
     "LTFLConfig",
@@ -153,5 +176,8 @@ __all__ = [
     "CONFIG",
     "get_arch",
     "list_archs",
+    "get_shape",
+    "arch_for_shape",
+    "shape_applicable",
     "reduce_for_smoke",
 ]

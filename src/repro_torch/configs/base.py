@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 
 # --------------------------------------------------------------------------- #
@@ -98,9 +98,8 @@ class ArchConfig:
     num_image_tokens: int = 0
 
     # FL/client mapping: True => per-client full grads do not fit per pod, so
-    # the client axis is ('pod',) only and params/grads are sharded (the
-    # reference's mesh layout; the port runs on one card and keeps the
-    # field as data).
+    # the client axis is ('pod',) only and params/grads are sharded over
+    # 'data' too (launch.sharding.policy_for).
     fl_clients_on_pod_only: bool = False
 
     # dtype of params/activations for sizing & dry-runs.
@@ -213,6 +212,17 @@ DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
 LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
 
 SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeConfig
+                     ) -> Tuple[bool, str]:
+    """Whether (arch, shape) is part of the dry-run grid, and why not."""
+    if shape.name == "long_500k" and not arch.subquadratic:
+        return False, (
+            "long_500k requires sub-quadratic attention; "
+            f"{arch.name} is full-attention (family={arch.family})"
+        )
+    return True, ""
 
 
 # --------------------------------------------------------------------------- #

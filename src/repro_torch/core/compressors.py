@@ -62,6 +62,9 @@ class Compressor:
     init_state: Callable[[Tree, int], Any] = \
         field(default=lambda params, n_clients: ())
     server_transform: Callable[[Tree], Tree] = field(default=lambda g: g)
+    # the injected uniform source, if any (``ltfl_quantizer(uniforms=)``);
+    # the sharded step slices each shard's uniforms from it
+    uniforms: Optional[UniformSource] = None
 
 
 def identity_compressor() -> Compressor:
@@ -75,7 +78,11 @@ def torch_uniforms(seed, n_clients: int,
     """The port's own draws: a generator on ``device`` seeded with the
     round seed (or ``seed`` itself, a generator), one (C, *shape)
     uniform tensor per leaf, in order, each drawn when the caller asks
-    for it."""
+    for it. On the meta device (the dry run) each is an empty tensor."""
+    if device.type == "meta" and not isinstance(seed, torch.Generator):
+        for s in shapes:
+            yield torch.empty((n_clients,) + tuple(s), device=device)
+        return
     if isinstance(seed, torch.Generator):
         gen = seed
     else:
@@ -108,9 +115,13 @@ def ltfl_quantizer(*, uniforms: Optional[UniformSource] = None
 
     Every leaf goes through the kernel wrapper as one (C, L) launch at
     bits = max(delta, 1); a client with delta <= 0 passes its gradient
-    through unchanged (the paper's no-quant ablation)."""
+    through unchanged (the paper's no-quant ablation). When each leaf is
+    one shard of the clients' leaves, ``reduce_range(name, lo, hi)``
+    returns each client's range over the whole leaf (the sharded step's
+    all-reduce)."""
 
-    def compress(g: Tree, delta: torch.Tensor, seed: int, state):
+    def compress(g: Tree, delta: torch.Tensor, seed: int, state, *,
+                 reduce_range: Optional[Callable] = None):
         leaves = list(g.values())
         n_clients = leaves[0].shape[0]
         shapes = [tuple(x.shape[1:]) for x in leaves]
@@ -120,15 +131,18 @@ def ltfl_quantizer(*, uniforms: Optional[UniformSource] = None
         bits = torch.clamp(delta, min=1.0)
         out = {}
         for (name, x), r in zip(g.items(), rands):
+            leaf_range = None if reduce_range is None else (
+                lambda lo, hi, name=name: reduce_range(name, lo, hi))
             q = ops.quantize_dequantize_2d_dyn(
                 x.reshape(n_clients, -1),
-                bits, rand=r.to(device).reshape(n_clients, -1))
+                bits, rand=r.to(device).reshape(n_clients, -1),
+                reduce_range=leaf_range)
             del r            # free this leaf's uniforms before the next draw
             keep = (delta > 0).reshape((n_clients,) + (1,) * (x.dim() - 1))
             out[name] = torch.where(keep, q.reshape(x.shape), x)
         return out, state
 
-    return Compressor(name="ltfl", compress=compress)
+    return Compressor(name="ltfl", compress=compress, uniforms=uniforms)
 
 
 def sign_compressor(lr_scale: float = 0.02) -> Compressor:

@@ -104,7 +104,10 @@ DROP_STREAM = 1 << 32
 def torch_drop_uniforms(seed: int, n_clients: int,
                         device: torch.device) -> torch.Tensor:
     """The port's own drop draw: (C,) uniforms from a generator on
-    ``device`` seeded with ``seed + DROP_STREAM``."""
+    ``device`` seeded with ``seed + DROP_STREAM`` (empty on the meta
+    device)."""
+    if device.type == "meta":
+        return torch.empty((n_clients,), device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) + DROP_STREAM)
     return torch.rand((n_clients,), generator=gen, device=device,
@@ -120,7 +123,9 @@ def make_fl_train_step(model, optimizer: Optimizer, n_clients: int, *,
                        compressor: Union[Compressor, str, None] = None,
                        drop_uniforms: Optional[DropSource] = None,
                        int8_collective: bool = False,
-                       int8_uniforms: Optional[UniformSource] = None
+                       int8_uniforms: Optional[UniformSource] = None,
+                       param_shardings=None,
+                       gather_shardings=None
                        ) -> Callable:
     """Build step(params, opt_state, comp_state, batch, controls, seed)
     -> (params, opt_state, comp_state, metrics).
@@ -132,7 +137,14 @@ def make_fl_train_step(model, optimizer: Optimizer, n_clients: int, *,
     identity when ``quantize`` is False). Without ``controls["alpha"]``
     every client is received (``simulate_drops`` False) or drops with
     probability ``controls["drop_prob"]``. ``int8_collective``: see the
-    module docstring."""
+    module docstring.
+
+    ``param_shardings`` (``launch.sharding.NamedSharding`` per leaf,
+    shaped like the STACKED (C, ...) gradients, as the reference's) makes
+    this the step over their mesh, ``core.sharded_step``: params and
+    batch are DTensors and ``gather_shardings`` lays out the int8
+    levels' all-gather. With both None the step is the one-device step
+    above."""
     if compressor is None:
         comp = ltfl_quantizer() if quantize else identity_compressor()
     else:
@@ -247,6 +259,21 @@ def make_fl_train_step(model, optimizer: Optimizer, n_clients: int, *,
         p, o, c, m = lanes([params], [opt_state], comp_state, batch,
                            [controls], [seed])
         return p[0], o[0], c, m[0]
+
+    if param_shardings is not None:
+        from repro_torch.core.sharded_step import make_sharded_step
+        sharded = make_sharded_step(
+            model_loss_grad=per_client, optimizer=optimizer,
+            n_clients=n_clients, comp=comp,
+            prune=_prune, prune_kind=prune_kind, prune_block=prune_block,
+            do_prune=prune,
+            int8_wire=int8_wire, int8_uniforms=int8_uniforms,
+            alpha_fn=_alpha, param_shardings=param_shardings,
+            gather_shardings=gather_shardings)
+        sharded.compressor = comp
+        sharded.init_comp_state = \
+            lambda params: comp.init_state(params, n_clients)
+        return sharded
 
     step.compressor = comp
     step.lanes = lanes

@@ -20,7 +20,7 @@ leaf order (``repro_torch.models.convert``).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -132,19 +132,27 @@ def payload_bits_host(num_params, bits, xi_bits) -> np.ndarray:
         lambda x: np.asarray(x, np.float32)), np.float64)
 
 
-def range_sq_sum(g: Tree, *, client_axis: bool = False) -> torch.Tensor:
+def range_sq_sum(g: Tree, *, client_axis: bool = False,
+                 reduce_range: Optional[Callable] = None,
+                 sizes: Optional[Dict[str, int]] = None) -> torch.Tensor:
     """sum over leaves of (max|g| - min|g|)^2 * leaf size — the
     Sigma_v (g_max - g_min)^2 term of Eq. (26)/(29) with per-tensor
     ranges, summed in leaf order in f32. With ``client_axis`` every leaf
-    is (C, ...) and the result is (C,), one sum per client."""
+    is (C, ...) and the result is (C,), one sum per client. When each
+    leaf is one shard of the clients' leaves, ``reduce_range(name, lo,
+    hi)`` returns the (C,) min and max over the whole leaf and ``sizes``
+    gives each whole leaf's size (the sharded step)."""
     total = None
-    for x in g.values():
+    for name, x in g.items():
         a = x.abs()          # exact in x's dtype: min/max cast exactly
         if client_axis:
             flat = a.reshape(a.shape[0], -1)
-            r = (flat.amax(dim=1).to(torch.float32)
-                 - flat.amin(dim=1).to(torch.float32))
-            size = float(flat.shape[1])
+            lo = flat.amin(dim=1).to(torch.float32)
+            hi = flat.amax(dim=1).to(torch.float32)
+            if reduce_range is not None:
+                lo, hi = reduce_range(name, lo, hi)
+            r = hi - lo
+            size = float(flat.shape[1] if sizes is None else sizes[name])
         else:
             r = a.max().to(torch.float32) - a.min().to(torch.float32)
             size = float(a.numel())
@@ -166,14 +174,19 @@ def quantize_int8(g: torch.Tensor, rand: torch.Tensor
     return levels[0], scales[0]
 
 
-def quantize_int8_clients(g: torch.Tensor, rand: torch.Tensor
+def quantize_int8_clients(g: torch.Tensor, rand: torch.Tensor,
+                          reduce_max: Optional[Callable] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``quantize_int8`` of each client's slice of a stacked (C, ...)
-    leaf: levels (C, ...) int8 and scales (C,) float32. The temporaries
+    leaf: levels (C, ...) int8 and scales (C,) float32. When g is one
+    shard of each client's leaf, ``reduce_max`` takes the (C,) max|g| to
+    the whole leaf's (the sharded step's all-reduce). The temporaries
     are reused in place (a granite-8b embedding leaf of 4 clients is 3.2
     GB a float32 temporary)."""
     gf = g.to(torch.float32)
     amax = gf.abs().reshape(g.shape[0], -1).amax(dim=1)
+    if reduce_max is not None:
+        amax = reduce_max(amax)
     scales = torch.clamp(amax / 127.0, min=1e-30)
     t = gf / scales.reshape((g.shape[0],) + (1,) * (g.dim() - 1))
     t_floor = torch.floor(t)

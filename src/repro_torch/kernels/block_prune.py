@@ -10,7 +10,12 @@ weights from the shared w, or gates all C clients' stacked gradients.
 
 ``block_norms`` and ``apply_block_mask`` are the wrappers. A CPU tensor
 goes to the plain version (``kernels.ref``); a CUDA tensor goes to the
-kernel or the wrapper raises. ``LAUNCHES`` counts kernel launches.
+kernel or the wrapper raises. A meta tensor (the dry run)
+gets an empty output of the right shape and dtype and counts no launch:
+a shape rule, not a fallback; any other device raises. On the card and
+on meta the wrapper reports the tensors its kernel reads
+(``build.note_reads``), for the dry run's byte count.
+``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -59,7 +64,7 @@ def tile_shape(shape: Tuple[int, int], block=DEFAULT_BLOCK
 def _check_w(w: torch.Tensor) -> None:
     if w.dtype not in _DTYPES:
         raise TypeError(f"w must be float32 or bfloat16, got {w.dtype}")
-    if w.device.type not in ("cpu", "cuda"):
+    if w.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel for device {w.device}")
 
 
@@ -79,6 +84,10 @@ def block_norms(w: torch.Tensor, block=DEFAULT_BLOCK) -> torch.Tensor:
     if w.device.type == "cpu":
         return block_norms_ref(w, bm, bn)
     m, n = w.shape
+    build.note_reads("block_norms", w)
+    if w.device.type == "meta":
+        return torch.empty((m // bm, n // bn), dtype=torch.float32,
+                           device=w.device)
     if not w.is_contiguous():
         raise ValueError("w must be contiguous")
     if max(m, n) > _MAX_DIM:
@@ -120,12 +129,15 @@ def apply_block_mask(w: torch.Tensor, mask: torch.Tensor,
                          f"{tuple(w.shape)} at block {(bm, bn)}")
     if w.device.type == "cpu":
         return apply_block_mask_ref(w, mask, bm, bn)
+    out_shape = (c, m, n) if mask.dim() == 3 else (m, n)
+    build.note_reads("apply_block_mask", w, mask)
+    if w.device.type == "meta":
+        return torch.empty(out_shape, dtype=w.dtype, device=w.device)
     if not (w.is_contiguous() and mask.is_contiguous()):
         raise ValueError("w and mask must be contiguous")
     if not 1 <= c <= _MAX_DIM or max(m, n) > _MAX_DIM:
         raise ValueError(f"w {tuple(w.shape)}, mask {tuple(mask.shape)}: "
                          "out of range")
-    out_shape = (c, m, n) if mask.dim() == 3 else (m, n)
     out = torch.empty(out_shape, dtype=w.dtype, device=w.device)
     stride = m * n if w.dim() == 3 else 0
     fn = _library().apply_block_mask_launch

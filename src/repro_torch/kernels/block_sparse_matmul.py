@@ -10,7 +10,12 @@ bound by the live tiles' multiply-adds.
 
 ``block_sparse_matmul`` is the wrapper. A CPU tensor goes to the plain
 version (``kernels.ref.block_sparse_matmul_ref``); a CUDA tensor goes to
-the kernel or the wrapper raises. ``LAUNCHES`` counts kernel launches.
+the kernel or the wrapper raises. A meta tensor (the dry run)
+gets an empty output of the right shape and dtype and counts no launch:
+a shape rule, not a fallback; any other device raises. On the card and
+on meta the wrapper reports the tensors its kernel reads
+(``build.note_reads``), for the dry run's byte count.
+``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -113,6 +118,9 @@ def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
                          f"{mask.device}")
     if x.device.type == "cpu":
         return block_sparse_matmul_ref(x, w, mask, bk, bn)
+    if x.device.type == "meta":
+        build.note_reads("block_sparse_matmul", x, w, mask)
+        return torch.empty((m, n), dtype=x.dtype, device=x.device)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
@@ -125,6 +133,7 @@ def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
                        aligned=x.data_ptr() % 16 == 0
                        and w.data_ptr() % 16 == 0)
     fn = _library().block_sparse_matmul_launch
+    build.note_reads("block_sparse_matmul", x, w, live)
     taken = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

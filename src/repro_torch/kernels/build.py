@@ -25,7 +25,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -33,6 +33,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+# Observers of what the kernels read: a wrapper calls ``note_reads``
+# with the tensors its kernel reads, where it launches it and in its
+# meta branch. No dispatched op shows those reads; the dry run's op
+# counter (``launch.op_analysis.OpCounter``) listens here and adds their
+# bytes (the kernel's output is counted where the wrapper allocates it).
+READ_HOOKS: List[Callable] = []
+
+
+def note_reads(name: str, *tensors) -> None:
+    for hook in READ_HOOKS:
+        hook(name, tensors)
 
 
 def nvcc_path() -> str:

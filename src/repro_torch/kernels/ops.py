@@ -29,7 +29,7 @@ Held against ``repro.kernels.ops``:
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -87,15 +87,20 @@ def kernel_quant_compatible(shape: Tuple[int, ...],
 
 def quantize_dequantize_2d_dyn(g: torch.Tensor, bits: torch.Tensor, *,
                                rand: Optional[torch.Tensor] = None,
-                               generator: Optional[torch.Generator] = None
+                               generator: Optional[torch.Generator] = None,
+                               reduce_range: Optional[Callable] = None
                                ) -> torch.Tensor:
     """Kernel-backed Q(g) for a client batch g (C, L) at per-client
-    bit-widths ``bits`` (C,). lo/hi are each client's min/max of |g|.
+    bit-widths ``bits`` (C,). lo/hi are each client's min/max of |g|;
+    when g is one shard of the clients' rows, ``reduce_range(lo, hi)``
+    returns them over the whole rows (the sharded step's all-reduce).
     ``rand`` (C, L) f32 supplies the uniforms; without it they are drawn
     here from ``generator`` (which must live on g's device)."""
     a = g.abs()              # exact in g's dtype: min/max cast exactly
     lo = a.amin(dim=1).to(torch.float32)
     hi = a.amax(dim=1).to(torch.float32)
+    if reduce_range is not None:
+        lo, hi = reduce_range(lo, hi)
     rng = torch.stack([lo, hi, level_counts(bits.to(g.device))], dim=1)
     if rand is None:
         rand = torch.rand(g.shape, generator=generator, device=g.device,

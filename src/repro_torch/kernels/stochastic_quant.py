@@ -9,7 +9,12 @@ clients of a leaf, with one [lo, hi, n_levels] row per client.
 
 ``stochastic_quant`` is the wrapper. A CPU tensor goes to the plain
 version (``kernels.ref.stochastic_quant_ref``); a CUDA tensor goes to the
-kernel or the wrapper raises. ``LAUNCHES`` counts kernel launches.
+kernel or the wrapper raises. A meta tensor (the dry run)
+gets an empty output of the right shape and dtype and counts no launch:
+a shape rule, not a fallback; any other device raises. On the card and
+on meta the wrapper reports the tensors its kernel reads
+(``build.note_reads``), for the dry run's byte count.
+``LAUNCHES`` counts kernel launches.
 ``stochastic_quant_static`` is the counterpart of the reference's
 static-bits ``stochastic_quant`` (lines 22-34), a wrapper over the same
 kernel body: one launch of this kernel with one client row.
@@ -66,6 +71,9 @@ def stochastic_quant(g: torch.Tensor, rand: torch.Tensor,
     _check(g, rand, rng)
     if g.device.type == "cpu":
         return stochastic_quant_ref(g, rand, rng)
+    if g.device.type == "meta":
+        build.note_reads(NAME, g, rand, rng)
+        return torch.empty_like(g)
     if g.device.type != "cuda":
         raise ValueError(f"no kernel for device {g.device}")
     c, n = g.shape
@@ -77,6 +85,7 @@ def stochastic_quant(g: torch.Tensor, rand: torch.Tensor,
                          f"got {(c, n)}")
     fn = _library().stochastic_quant_launch
     out = torch.empty_like(g)
+    build.note_reads(NAME, g, rand, rng)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         err = fn(g.data_ptr(), rand.data_ptr(), rng.data_ptr(),

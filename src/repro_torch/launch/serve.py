@@ -135,7 +135,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     arch = configs.get_arch(args.arch)
     if args.smoke:
         arch = configs.reduce_for_smoke(arch)
-    model = build_model(arch)
+    model = build_model(arch, remat=False)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = model.init(gen)

@@ -1,20 +1,27 @@
 """Parameter specs and initialization, and the numerics shared by the
 port's models.
 
-Held against ``repro.models.common``: ``ParamSpec`` (shape, init recipe,
-scale, dtype; bfloat16 unless a model asks for another), the
-``"normal"`` / ``"embed"`` / ``"uniform"`` / ``"ones"`` / ``"zeros"``
-inits, ``stack_specs``, ``param_count_tree``, ``rms_norm``,
-``layer_norm``, ``apply_norm``, ``norm_specs``, ``activation``,
-``rope_tables``, ``apply_rope``, ``apply_rope_at`` and
-``cross_entropy_loss``; ``time_scan`` stands in for the reference's
-``lax.scan`` over time in the recurrent families, ``unstack`` walks
-stacked layers and ``store_layer`` writes one layer of a stacked cache.
-The
-reference's logical sharding axes and ``shard_hint`` are left out: the
-port runs on one card. Parameter trees are flat ``Dict[str, Tensor]``
-keyed by dotted paths in the reference's leaf order
-(``models.convert``).
+Held against ``repro.models.common``: ``ParamSpec`` (shape, logical
+sharding axes, init recipe, scale, dtype; bfloat16 unless a model asks
+for another), the ``"normal"`` / ``"embed"`` / ``"uniform"`` /
+``"ones"`` / ``"zeros"`` inits, ``abstract_params`` (meta tensors),
+``logical_axes``, ``stack_specs``, ``param_count_tree``,
+``logical_rule_scope``, ``shard_hint``, ``rms_norm``, ``layer_norm``,
+``apply_norm``, ``norm_specs``, ``activation``, ``rope_tables``,
+``apply_rope``, ``apply_rope_at`` and ``cross_entropy_loss``;
+``time_scan`` stands in for the reference's ``lax.scan`` over time in
+the recurrent families, ``unstack`` walks stacked layers and
+``store_layer`` writes one layer of a stacked cache. ``remat`` is the
+counterpart of ``jax.checkpoint(..., policy=nothing_saveable)``.
+Parameter trees are flat ``Dict[str, Tensor]`` keyed by dotted paths in
+the reference's leaf order (``models.convert``); ``logical_axes`` is a
+flat dict under the same keys.
+
+Logical axis vocabulary (``launch.sharding`` maps it onto a mesh):
+layers, embed, embed_out, vocab, heads, heads_fused, kv_heads, kv_fused,
+head_dim, kv_lora, d_ff, experts, expert_ff, ssm_fused, state, conv,
+batch, seq, client, and the activation names act_seq, act_embed,
+act_ff, act_expert_ff.
 
 Initialization draws from an explicit ``torch.Generator``, leaf by leaf
 in that order; it gives other numbers than the reference's jax keys for
@@ -27,7 +34,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,9 +45,14 @@ Tree = Dict[str, torch.Tensor]
 @dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
     init: str = "normal"          # normal | zeros | ones | embed | uniform
     scale: float = 1.0
     dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
 
 
 def _fan_in(shape: Tuple[int, ...]) -> int:
@@ -87,10 +99,23 @@ def init_params(specs: Dict[str, ParamSpec], generator: torch.Generator,
             for name, spec in specs.items()}
 
 
+def abstract_params(specs: Dict[str, ParamSpec]) -> Tree:
+    """Every leaf as a meta tensor of its shape and dtype (no storage):
+    the counterpart of the reference's ``jax.ShapeDtypeStruct`` tree."""
+    return {k: torch.empty(s.shape, dtype=s.dtype, device="meta")
+            for k, s in specs.items()}
+
+
+def logical_axes(specs: Dict[str, ParamSpec]
+                 ) -> Dict[str, Tuple[Optional[str], ...]]:
+    return {k: s.axes for k, s in specs.items()}
+
+
 def stack_specs(n_layers: int, specs: Dict[str, ParamSpec]
                 ) -> Dict[str, ParamSpec]:
     """Prepend a stacked 'layers' axis to every spec."""
-    return {k: ParamSpec((n_layers,) + s.shape, s.init, s.scale, s.dtype)
+    return {k: ParamSpec((n_layers,) + s.shape, ("layers",) + s.axes,
+                         s.init, s.scale, s.dtype)
             for k, s in specs.items()}
 
 
@@ -146,9 +171,9 @@ def apply_norm(cfg, x: torch.Tensor, p: Tree, prefix: str = ""
 
 
 def norm_specs(cfg, d: int) -> Dict[str, ParamSpec]:
-    s = {"gamma": ParamSpec((d,), "ones")}
+    s = {"gamma": ParamSpec((d,), ("embed",), "ones")}
     if cfg.norm == "layernorm":
-        s["beta"] = ParamSpec((d,), "zeros")
+        s["beta"] = ParamSpec((d,), ("embed",), "zeros")
     return s
 
 
@@ -168,8 +193,10 @@ def _rope_freqs(head_dim: int, theta: float,
                 device: Optional[torch.device]) -> torch.Tensor:
     half = head_dim // 2
     expo = torch.arange(half, dtype=torch.float32, device=device) / half
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), expo)
+    # torch.full, not torch.tensor: the latter detaches in place, which a
+    # grad transform refuses on the meta device (the dry run)
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), expo)
 
 
 def rope_tables(seq_len: int, head_dim: int, theta: float, offset: int = 0,
@@ -243,6 +270,97 @@ def store_layer(cache: Tree, key: str, index, value: torch.Tensor,
         cache[key] = torch.empty(cache[key].shape, dtype=value.dtype,
                                  device=cache[key].device)
     cache[key][index] = value
+
+
+# --------------------------------------------------------------------------- #
+# Activation sharding hints (resolved against the launcher's logical rules)
+# --------------------------------------------------------------------------- #
+_LOGICAL_RULES: Dict[str, Any] = {"rules": None, "mesh": None}
+
+
+class logical_rule_scope:
+    """Context manager that activates the activation-sharding hints:
+    ``with logical_rule_scope(rules, mesh): ...``. ``rules`` maps a
+    logical axis name to mesh axes (str / tuple / None); ``mesh`` is a
+    ``DeviceMesh`` with dim names."""
+
+    def __init__(self, rules, mesh):
+        self.rules, self.mesh = rules, mesh
+
+    def __enter__(self):
+        self._saved = dict(_LOGICAL_RULES)
+        _LOGICAL_RULES["rules"] = self.rules
+        _LOGICAL_RULES["mesh"] = self.mesh
+        return self
+
+    def __exit__(self, *exc):
+        _LOGICAL_RULES.update(self._saved)
+        return False
+
+
+def shard_hint(x: torch.Tensor, axes: Tuple[Optional[str], ...]
+               ) -> torch.Tensor:
+    """Redistribute a DTensor to the placements its logical ``axes``
+    resolve to under the active rules (the reference's
+    ``with_sharding_constraint``). The identity outside a
+    ``logical_rule_scope`` and for a plain tensor, so the one-card paths
+    and the step's local compute run unchanged."""
+    rules, mesh = _LOGICAL_RULES["rules"], _LOGICAL_RULES["mesh"]
+    if rules is None or mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.launch.sharding import make_pspec, placements
+    spec = make_pspec(tuple(x.shape), axes, rules, mesh)
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
+# --------------------------------------------------------------------------- #
+# Rematerialization
+# --------------------------------------------------------------------------- #
+class _Remat(torch.autograd.Function):
+    """``fn(*args)`` saving only its inputs; the backward recomputes the
+    body and takes its vector-Jacobian product with ``torch.func.vjp``.
+    ``torch.utils.checkpoint`` does not run under ``torch.func.grad``
+    (saved-tensor hooks); this does, vmap included."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, *args):
+        with torch.no_grad():
+            return fn(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        # no_grad: torch.func.grad differentiates with create_graph, which
+        # would keep every recomputed intermediate alive through the rest
+        # of the backward pass; the gradients here need no graph (the
+        # step takes first derivatives only)
+        with torch.no_grad():
+            _, vjp_fn = torch.func.vjp(ctx.fn, *ctx.saved_tensors)
+            return (None,) + tuple(vjp_fn(cotangents))
+
+
+def remat(body: Callable[..., Tuple[torch.Tensor, ...]], lp: Tree,
+          *xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``body(lp, *xs)`` (a tuple of tensors) whose intermediates are not
+    kept for the backward pass but recomputed there: the reference's
+    ``jax.checkpoint(body, policy=nothing_saveable)``. The layer's params
+    dict is flattened to positional tensors for ``_Remat``; ``body``
+    closes over no tensor."""
+    keys = list(lp)
+
+    def flat(*args):
+        return body(dict(zip(keys, args[:len(keys)])), *args[len(keys):])
+
+    return _Remat.apply(flat, *[lp[k] for k in keys], *xs)
 
 
 def cross_entropy_loss(logits: torch.Tensor,

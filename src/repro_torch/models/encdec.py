@@ -15,7 +15,8 @@ Parameters are a flat dict in the reference's leaf order
 (``dec_final_norm.*``, ``decoder.cross_attn.wk``, ..., ``embed.pos``,
 ``enc_final_norm.*``, ``encoder.attn.wk``, ...); ``encoder.*`` and
 ``decoder.*`` carry the stacked layer axis and Python loops replace the
-reference's ``lax.scan`` (its remat is left out). Where a matmul meets
+reference's ``lax.scan`` (with ``remat``, the default, each layer under
+``models.common.remat``, as the reference's). Where a matmul meets
 two dtypes (the bfloat16 frames and float32 encoder weights; a bfloat16
 encoder's output and float32 cross-attention weights) the activations go
 up to the wider one, as jax's type promotion does.
@@ -35,11 +36,14 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import (
     ParamSpec,
+    abstract_params,
     apply_norm,
     cross_entropy_loss,
     init_params,
     norm_specs,
     prefixed,
+    remat,
+    shard_hint,
     stack_specs,
     store_layer,
     subtree,
@@ -68,11 +72,12 @@ def _promoted(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 class EncDecLM:
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, remat: bool = True):
         if cfg.family != "encdec":
             raise ValueError(f"{cfg.name}: EncDecLM builds the encdec "
                              f"family, not {cfg.family!r}")
         self.cfg = cfg
+        self.remat = remat
 
     # ------------------------------------------------------------------ #
     def param_specs(self) -> Dict[str, ParamSpec]:
@@ -106,19 +111,31 @@ class EncDecLM:
              device: Optional[torch.device] = None) -> Tree:
         return init_params(self.param_specs(), generator, device)
 
+    def abstract_params(self) -> Tree:
+        return abstract_params(self.param_specs())
+
     # ------------------------------------------------------------------ #
     def encode(self, params: Tree, frames: torch.Tensor) -> torch.Tensor:
         """frames (B, S_enc, D): the stub front end's output."""
         cfg = self.cfg
         x = frames.to(torch.bfloat16)
         x = x + params["embed.pos"][:x.shape[1]].to(x.dtype)[None]
+        x = shard_hint(x, ("batch", "act_seq", "act_embed"))
         for lp in unstack(params, "encoder.", cfg.encoder_layers):
-            attn = subtree(lp, "attn.")
-            h = _promoted(apply_norm(cfg, x, lp, "ln1."), attn["wq"])
-            x = x + attention_train(cfg, attn, h, causal=False, rope=False)
-            h2 = apply_norm(cfg, x, lp, "ln2.")
-            x = x + mlp_apply(cfg, subtree(lp, "mlp."), h2)
+            if self.remat:
+                x, = remat(self._encoder_layer, lp, x)
+            else:
+                x, = self._encoder_layer(lp, x)
         return apply_norm(cfg, x, params, "enc_final_norm.")
+
+    def _encoder_layer(self, lp: Tree, x: torch.Tensor
+                       ) -> Tuple[torch.Tensor]:
+        cfg = self.cfg
+        attn = subtree(lp, "attn.")
+        h = _promoted(apply_norm(cfg, x, lp, "ln1."), attn["wq"])
+        x = x + attention_train(cfg, attn, h, causal=False, rope=False)
+        h2 = apply_norm(cfg, x, lp, "ln2.")
+        return (x + mlp_apply(cfg, subtree(lp, "mlp."), h2),)
 
     def _embed_dec(self, params: Tree, tokens: torch.Tensor
                    ) -> torch.Tensor:
@@ -143,6 +160,10 @@ class EncDecLM:
         h2 = apply_norm(cfg, x, lp, "ln2.")
         return x + mlp_apply(cfg, subtree(lp, "mlp."), h2)
 
+    def _remat_decoder_layer(self, lp: Tree, x: torch.Tensor,
+                             enc_out: torch.Tensor) -> Tuple[torch.Tensor]:
+        return (self._decoder_layer(lp, x, enc_out),)
+
     def _head(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
         x = apply_norm(self.cfg, x, params, "dec_final_norm.")
         return lm_head(self.cfg, subtree(params, "embed."), x)
@@ -152,8 +173,12 @@ class EncDecLM:
         """-> (logits (B, S, V), a float32 zero: no auxiliary loss)."""
         enc_out = self.encode(params, batch["frames"])
         x = self._embed_dec(params, batch["tokens"])
+        x = shard_hint(x, ("batch", "act_seq", "act_embed"))
         for lp in unstack(params, "decoder.", self.cfg.n_layers):
-            x = self._decoder_layer(lp, x, enc_out)
+            if self.remat:
+                x, = remat(self._remat_decoder_layer, lp, x, enc_out)
+            else:
+                x = self._decoder_layer(lp, x, enc_out)
         return self._head(params, x), torch.zeros(
             (), dtype=torch.float32, device=x.device)
 
@@ -175,11 +200,18 @@ class EncDecLM:
             "cross_v": ((L, B, cfg.encoder_seq, kv, hd), CACHE_DTYPE),
         }
 
+    def cache_axes(self) -> Dict[str, tuple]:
+        kv = ("layers", "batch", "seq", "kv_heads", "head_dim")
+        return {"self_k": kv, "self_v": kv, "cross_k": kv, "cross_v": kv}
+
     def init_cache(self, batch_size: int, cache_len: int,
                    device: Optional[torch.device] = None) -> Tree:
         return {k: torch.zeros(sh, dtype=dt, device=device)
                 for k, (sh, dt) in self.cache_struct(batch_size,
                                                      cache_len).items()}
+
+    def abstract_cache(self, batch_size: int, cache_len: int) -> Tree:
+        return self.init_cache(batch_size, cache_len, torch.device("meta"))
 
     def _cross_attend_step(self, cfg: ArchConfig, p: Tree, x: torch.Tensor,
                            ck: torch.Tensor, cv: torch.Tensor

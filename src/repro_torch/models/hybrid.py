@@ -6,10 +6,12 @@ Held against ``repro.models.hybrid.HybridLM``: ``param_specs``,
 ``init``, ``forward``, ``loss``, ``cache_struct``, ``init_cache``,
 ``decode_step`` and ``prefill``. The Mamba layers are a two-level stack,
 ``segments.*`` (n_segments, per_segment, ...), walked by two Python
-loops (the reference's nested ``lax.scan``). The shared block's weights
-(``shared_block.*``) are one set of leaves used at every call site, so
-autograd sums its gradient over the sites and the datacenter step
-quantizes it once. In ``forward`` and ``prefill`` every Mamba layer
+loops (the reference's nested ``lax.scan``); with ``remat``, the
+default, each segment (the shared block and its Mamba layers) runs
+under ``models.common.remat``, as the reference's. The shared block's
+weights (``shared_block.*``) are one set of leaves used at every call
+site, so autograd sums its gradient over the sites and the datacenter
+step quantizes it once. In ``forward`` and ``prefill`` every Mamba layer
 starts from a zero state.
 
 The cache holds the attention keys and values per segment (``attn_k``,
@@ -32,11 +34,14 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import mamba2
 from repro_torch.models.common import (
     ParamSpec,
+    abstract_params,
     apply_norm,
     cross_entropy_loss,
     init_params,
     norm_specs,
     prefixed,
+    remat,
+    shard_hint,
     stack_specs,
     store_layer,
     subtree,
@@ -61,7 +66,7 @@ CACHE_DTYPE = torch.bfloat16
 
 
 class HybridLM:
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, remat: bool = True):
         if cfg.family != "hybrid" or cfg.attn_every <= 0 \
                 or cfg.n_layers % cfg.attn_every:
             raise ValueError(f"{cfg.name}: HybridLM needs the hybrid family "
@@ -69,6 +74,7 @@ class HybridLM:
         self.cfg = cfg
         self.n_segments = cfg.n_layers // cfg.attn_every
         self.per_segment = cfg.attn_every
+        self.remat = remat
 
     # ------------------------------------------------------------------ #
     def param_specs(self) -> Dict[str, ParamSpec]:
@@ -92,6 +98,9 @@ class HybridLM:
     def init(self, generator: torch.Generator,
              device: Optional[torch.device] = None) -> Tree:
         return init_params(self.param_specs(), generator, device)
+
+    def abstract_params(self) -> Tree:
+        return abstract_params(self.param_specs())
 
     def _segments(self, params: Tree):
         """Per segment: the per-layer params of its Mamba layers."""
@@ -122,17 +131,33 @@ class HybridLM:
         """-> (logits (B, S, V), a float32 zero: no auxiliary loss)."""
         cfg = self.cfg
         x = embed_tokens(cfg, subtree(params, "embed."), batch["tokens"])
-        zero_ssm, zero_conv = self._zero_states(x.shape[0], x.device)
-        shared = subtree(params, "shared_block.")
+        shared = prefixed("shared.", subtree(params, "shared_block."))
         for seg in self._segments(params):
-            x = self._shared_block_seq(shared, x)
-            for lp in seg:
-                h = apply_norm(cfg, x, lp, "ln.")
-                out, _, _ = mamba2.mamba_seq(cfg, subtree(lp, "mamba."), h,
-                                             zero_ssm, zero_conv)
-                x = x + out
+            # one segment's params as one flat dict: the shared block's
+            # and its Mamba layers' (``<i>.<name>``)
+            seg_p = {**shared, **{f"{i}.{k}": v for i, lp in enumerate(seg)
+                                  for k, v in lp.items()}}
+            if self.remat:
+                x, = remat(self._segment_seq, seg_p, x)
+            else:
+                x, = self._segment_seq(seg_p, x)
         return self._head(params, x), torch.zeros(
             (), dtype=torch.float32, device=x.device)
+
+    def _segment_seq(self, seg_p: Tree, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor]:
+        """The shared block, then the segment's Mamba layers from zero
+        states (training forward)."""
+        cfg = self.cfg
+        zero_ssm, zero_conv = self._zero_states(x.shape[0], x.device)
+        x = self._shared_block_seq(subtree(seg_p, "shared."), x)
+        for i in range(self.per_segment):
+            lp = subtree(seg_p, f"{i}.")
+            h = apply_norm(cfg, x, lp, "ln.")
+            out, _, _ = mamba2.mamba_seq(cfg, subtree(lp, "mamba."), h,
+                                         zero_ssm, zero_conv)
+            x = x + out
+        return (shard_hint(x, ("batch", "act_seq", "act_embed")),)
 
     def loss(self, params: Tree, batch: Dict[str, torch.Tensor]
              ) -> torch.Tensor:
@@ -155,11 +180,23 @@ class HybridLM:
                      CACHE_DTYPE),
         }
 
+    def cache_axes(self) -> Dict[str, tuple]:
+        kv = ("layers", "batch", "seq", "kv_heads", "head_dim")
+        return {
+            "attn_k": kv,
+            "attn_v": kv,
+            "ssm": ("layers", None, "batch", "heads", "head_dim", None),
+            "conv": ("layers", None, "batch", None, "ssm_fused"),
+        }
+
     def init_cache(self, batch_size: int, cache_len: int,
                    device: Optional[torch.device] = None) -> Tree:
         return {k: torch.zeros(sh, dtype=dt, device=device)
                 for k, (sh, dt) in self.cache_struct(batch_size,
                                                      cache_len).items()}
+
+    def abstract_cache(self, batch_size: int, cache_len: int) -> Tree:
+        return self.init_cache(batch_size, cache_len, torch.device("meta"))
 
     def decode_step(self, params: Tree, token: torch.Tensor,
                     pos: torch.Tensor, cache: Tree

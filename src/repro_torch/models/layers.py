@@ -46,6 +46,7 @@ from repro_torch.models.common import (
     apply_rope,
     apply_rope_at,
     rope_tables,
+    shard_hint,
 )
 
 Tree = Dict[str, torch.Tensor]
@@ -59,20 +60,22 @@ Q_CHUNK = 512
 # Embeddings
 # --------------------------------------------------------------------------- #
 def embedding_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
-    s = {"tok": ParamSpec((cfg.vocab_size, cfg.d_model), "embed",
-                          scale=0.02)}
+    s = {"tok": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                          "embed", scale=0.02)}
     if not cfg.tie_embeddings:
-        s["head"] = ParamSpec((cfg.d_model, cfg.vocab_size), "normal")
+        s["head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
+                              ("embed", "vocab"), "normal")
     if cfg.pos_emb == "learned":
         # sized generously; decode indexes by absolute position
         s["pos"] = ParamSpec((max(cfg.encoder_seq, 4096), cfg.d_model),
-                             "embed", scale=0.02)
+                             (None, "embed"), "embed", scale=0.02)
     return s
 
 
 def embed_tokens(cfg: ArchConfig, p: Tree, tokens: torch.Tensor
                  ) -> torch.Tensor:
-    return F.embedding(tokens, p["tok"])
+    x = F.embedding(tokens, p["tok"])
+    return shard_hint(x, ("batch", "act_seq", "act_embed"))
 
 
 def lm_head(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
@@ -86,15 +89,15 @@ def lm_head(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
 def attention_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s = {
-        "wq": ParamSpec((d, h * hd), "normal"),
-        "wk": ParamSpec((d, kv * hd), "normal"),
-        "wv": ParamSpec((d, kv * hd), "normal"),
-        "wo": ParamSpec((h * hd, d), "normal"),
+        "wq": ParamSpec((d, h * hd), ("embed", "heads_fused"), "normal"),
+        "wk": ParamSpec((d, kv * hd), ("embed", "kv_fused"), "normal"),
+        "wv": ParamSpec((d, kv * hd), ("embed", "kv_fused"), "normal"),
+        "wo": ParamSpec((h * hd, d), ("heads_fused", "embed"), "normal"),
     }
     if cfg.qkv_bias:
-        s["bq"] = ParamSpec((h * hd,), "zeros")
-        s["bk"] = ParamSpec((kv * hd,), "zeros")
-        s["bv"] = ParamSpec((kv * hd,), "zeros")
+        s["bq"] = ParamSpec((h * hd,), ("heads_fused",), "zeros")
+        s["bk"] = ParamSpec((kv * hd,), ("kv_fused",), "zeros")
+        s["bv"] = ParamSpec((kv * hd,), ("kv_fused",), "zeros")
     return s
 
 
@@ -194,9 +197,11 @@ def attention_train(cfg: ArchConfig, p: Tree, x: torch.Tensor, *,
         cos, sin = rope_tables(k.shape[1], cfg.head_dim, cfg.rope_theta,
                                device=x.device)
         k = apply_rope(k, cos, sin)
+    q = shard_hint(q, ("batch", "seq", "heads", "head_dim"))
+    k = shard_hint(k, ("batch", "seq", "kv_heads", "head_dim"))
     out = attend(cfg, q, k, v, causal=causal, q_offset=q_offset)
     out = out.reshape(x.shape[0], x.shape[1], cfg.n_heads * cfg.head_dim)
-    return out @ p["wo"]
+    return shard_hint(out @ p["wo"], ("batch", "act_seq", "act_embed"))
 
 
 def attention_prefill_kv(cfg: ArchConfig, p: Tree, x: torch.Tensor
@@ -252,10 +257,14 @@ def attention_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     slot = pos % cache_len if cfg.sliding_window else pos
     write_cache(cache_k, slot, k)
     write_cache(cache_v, slot, v)
+    cache_axes = ("batch", "seq", "kv_heads", "head_dim")
+    cache_k = shard_hint(cache_k, cache_axes)
+    cache_v = shard_hint(cache_v, cache_axes)
 
-    qg = q.reshape(B, kv, h // kv, hd)
-    kk = cache_k.to(q.dtype)                                # (B, S, KV, hd)
-    vv = cache_v.to(q.dtype)
+    qg = shard_hint(q.reshape(B, kv, h // kv, hd),
+                    ("batch", "kv_heads", None, "head_dim"))
+    kk = shard_hint(cache_k.to(q.dtype), cache_axes)        # (B, S, KV, hd)
+    vv = shard_hint(cache_v.to(q.dtype), cache_axes)
     scores = torch.einsum("bkgd,bskd->bkgs", qg, kk).to(torch.float32)
     scores = scores * (hd ** -0.5)
     kpos = torch.arange(cache_len, device=x.device)[None, :]
@@ -277,13 +286,13 @@ def mlp_specs(cfg: ArchConfig, d_ff: Optional[int] = None
     d, f = cfg.d_model, d_ff or cfg.d_ff
     if cfg.glu:
         return {
-            "wi_gate": ParamSpec((d, f), "normal"),
-            "wi_up": ParamSpec((d, f), "normal"),
-            "wo": ParamSpec((f, d), "normal"),
+            "wi_gate": ParamSpec((d, f), ("embed", "d_ff"), "normal"),
+            "wi_up": ParamSpec((d, f), ("embed", "d_ff"), "normal"),
+            "wo": ParamSpec((f, d), ("d_ff", "embed"), "normal"),
         }
     return {
-        "wi": ParamSpec((d, f), "normal"),
-        "wo": ParamSpec((f, d), "normal"),
+        "wi": ParamSpec((d, f), ("embed", "d_ff"), "normal"),
+        "wo": ParamSpec((f, d), ("d_ff", "embed"), "normal"),
     }
 
 
@@ -293,4 +302,5 @@ def mlp_apply(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
         h = act(x @ p["wi_gate"]) * (x @ p["wi_up"])
     else:
         h = act(x @ p["wi"])
+    h = shard_hint(h, ("batch", "seq", "act_ff")) if h.dim() == 3 else h
     return h @ p["wo"]

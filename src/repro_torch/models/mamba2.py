@@ -29,7 +29,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, SSMConfig
-from repro_torch.models.common import ParamSpec, rms_norm, time_scan
+from repro_torch.models.common import (
+    ParamSpec,
+    rms_norm,
+    shard_hint,
+    time_scan,
+)
 
 Tree = Dict[str, torch.Tensor]
 
@@ -52,14 +57,15 @@ def mamba_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     s, d_in, n_heads, conv_dim = mamba_dims(cfg)
     proj_out = 2 * d_in + 2 * s.n_groups * s.state_dim + n_heads  # z,x,B,C,dt
     return {
-        "in_proj": ParamSpec((d, proj_out), "normal"),
-        "conv_w": ParamSpec((s.conv_width, conv_dim), "normal", scale=1.0),
-        "conv_b": ParamSpec((conv_dim,), "zeros"),
-        "a_log": ParamSpec((n_heads,), "zeros"),
-        "dt_bias": ParamSpec((n_heads,), "zeros"),
-        "d_skip": ParamSpec((n_heads,), "ones"),
-        "out_norm": ParamSpec((d_in,), "ones"),
-        "out_proj": ParamSpec((d_in, d), "normal"),
+        "in_proj": ParamSpec((d, proj_out), ("embed", "ssm_fused"), "normal"),
+        "conv_w": ParamSpec((s.conv_width, conv_dim), ("conv", "ssm_fused"),
+                            "normal", scale=1.0),
+        "conv_b": ParamSpec((conv_dim,), ("ssm_fused",), "zeros"),
+        "a_log": ParamSpec((n_heads,), ("heads",), "zeros"),
+        "dt_bias": ParamSpec((n_heads,), ("heads",), "zeros"),
+        "d_skip": ParamSpec((n_heads,), ("heads",), "ones"),
+        "out_norm": ParamSpec((d_in,), ("ssm_fused",), "ones"),
+        "out_proj": ParamSpec((d_in, d), ("ssm_fused", "embed"), "normal"),
     }
 
 
@@ -179,7 +185,9 @@ def mamba_seq(cfg: ArchConfig, p: Tree, u: torch.Tensor,
         * x.to(torch.float32)
     y = y.reshape(B_, S, d_in).to(u.dtype)
     y = rms_norm(y, p["out_norm"]) * F.silu(z)
-    return y @ p["out_proj"], ssm_state, new_conv
+    out = y @ p["out_proj"]
+    return (shard_hint(out, ("batch", "act_seq", "act_embed")), ssm_state,
+            new_conv)
 
 
 def mamba_step(cfg: ArchConfig, p: Tree, u: torch.Tensor,

@@ -21,6 +21,7 @@ from repro_torch.models.common import (
     apply_rope_at,
     rms_norm,
     rope_tables,
+    shard_hint,
 )
 from repro_torch.models.layers import NEG_INF, attend, write_cache
 
@@ -32,14 +33,16 @@ def mla_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     d, h = cfg.d_model, cfg.n_heads
     qd = m.qk_nope_head_dim + m.qk_rope_head_dim
     return {
-        "wq": ParamSpec((d, h * qd), "normal"),
+        "wq": ParamSpec((d, h * qd), ("embed", "heads_fused"), "normal"),
         "w_dkv": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim),
-                           "normal"),
-        "kv_norm": ParamSpec((m.kv_lora_rank,), "ones"),
+                           ("embed", "kv_lora"), "normal"),
+        "kv_norm": ParamSpec((m.kv_lora_rank,), ("kv_lora",), "ones"),
         "w_uk": ParamSpec((m.kv_lora_rank, h * m.qk_nope_head_dim),
-                          "normal"),
-        "w_uv": ParamSpec((m.kv_lora_rank, h * m.v_head_dim), "normal"),
-        "wo": ParamSpec((h * m.v_head_dim, d), "normal"),
+                          ("kv_lora", "heads_fused"), "normal"),
+        "w_uv": ParamSpec((m.kv_lora_rank, h * m.v_head_dim),
+                          ("kv_lora", "heads_fused"), "normal"),
+        "wo": ParamSpec((h * m.v_head_dim, d), ("heads_fused", "embed"),
+                        "normal"),
     }
 
 
@@ -72,10 +75,12 @@ def mla_train(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
     k = torch.cat([k_nope, k_rope.expand(B, S, h, m.qk_rope_head_dim)],
                   dim=-1)
     qq = torch.cat([q_nope, q_rope], dim=-1)
+    qq = shard_hint(qq, ("batch", "seq", "heads", "head_dim"))
     # v may be narrower than the qk head_dim; attend only needs q and k
     # to match
     out = attend(cfg.replace(n_kv_heads=cfg.n_heads), qq, k, v, causal=True)
-    return out.reshape(B, S, h * m.v_head_dim) @ p["wo"]
+    y = out.reshape(B, S, h * m.v_head_dim) @ p["wo"]
+    return shard_hint(y, ("batch", "act_seq", "act_embed"))
 
 
 def mla_prefill_cache(cfg: ArchConfig, p: Tree, x: torch.Tensor

@@ -64,7 +64,7 @@ class MLP(nn.Module):
         specs = {}
         for name, p in self.named_parameters():
             kind = "normal" if name.startswith("w") else "zeros"
-            specs[name] = ParamSpec(tuple(p.shape), kind,
+            specs[name] = ParamSpec(tuple(p.shape), (None,) * p.dim(), kind,
                                     dtype=torch.float32)
         return in_leaf_order(specs)
 

@@ -24,7 +24,12 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import ParamSpec, activation, subtree
+from repro_torch.models.common import (
+    ParamSpec,
+    activation,
+    shard_hint,
+    subtree,
+)
 from repro_torch.models.layers import mlp_apply, mlp_specs
 
 Tree = Dict[str, torch.Tensor]
@@ -42,13 +47,18 @@ def moe_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     e, f = mo.num_experts, mo.d_expert
     # router kept in f32: routing decisions are precision-sensitive
     s: Dict[str, ParamSpec] = {
-        "router": ParamSpec((d, e), "normal", dtype=torch.float32)}
+        "router": ParamSpec((d, e), ("embed", "experts"), "normal",
+                            dtype=torch.float32)}
     if cfg.glu:
-        s["w_gate"] = ParamSpec((e, d, f), "normal")
-        s["w_up"] = ParamSpec((e, d, f), "normal")
+        s["w_gate"] = ParamSpec((e, d, f), ("experts", "embed", "expert_ff"),
+                                "normal")
+        s["w_up"] = ParamSpec((e, d, f), ("experts", "embed", "expert_ff"),
+                              "normal")
     else:
-        s["w_in"] = ParamSpec((e, d, f), "normal")
-    s["w_down"] = ParamSpec((e, f, d), "normal")
+        s["w_in"] = ParamSpec((e, d, f), ("experts", "embed", "expert_ff"),
+                              "normal")
+    s["w_down"] = ParamSpec((e, f, d), ("experts", "expert_ff", "embed"),
+                            "normal")
     if mo.num_shared_experts > 0:
         shared_f = mo.d_shared_expert * mo.num_shared_experts
         s.update({f"shared.{k}": v
@@ -91,6 +101,8 @@ def _experts(cfg: ArchConfig, p: Tree, eq_in: str, x: torch.Tensor,
             * torch.einsum(eq_in, x, p["w_up"])
     else:
         h = act(torch.einsum(eq_in, x, p["w_in"]))
+    if h.dim() == 4:                   # the grouped path, (G, E, C, F)
+        h = shard_hint(h, ("batch", "experts", None, "act_expert_ff"))
     return torch.einsum(eq_out, h, p["w_down"])
 
 
@@ -141,6 +153,7 @@ def moe_apply(cfg: ArchConfig, p: Tree, x: torch.Tensor
     C = _capacity(g_size, K, E, mo.capacity_factor)
 
     xg = x.reshape(G, g_size, D)
+    xg = shard_hint(xg, ("batch", None, "act_embed"))
     probs, top_w, top_i = _route(p, xg, K)                    # (G, Sg, *)
 
     # ---- load-balance auxiliary loss (switch-style) ---------------------- #
@@ -152,6 +165,7 @@ def moe_apply(cfg: ArchConfig, p: Tree, x: torch.Tensor
 
     # ---- expert computation ---------------------------------------------- #
     ex_in = torch.einsum("gsd,gsec->gecd", xg, dispatch)       # (G, E, C, D)
+    ex_in = shard_hint(ex_in, ("batch", "experts", None, "act_embed"))
     ex_out = _experts(cfg, p, "gecd,edf->gecf", ex_in, "gecf,efd->gecd")
     y = torch.einsum("gecd,gsec->gsd", ex_out, combine.to(x.dtype))
     y = y.reshape(B, S, D)

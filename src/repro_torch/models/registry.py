@@ -1,14 +1,18 @@
 """Model factory and batch constructors.
 
 Held against ``repro.models.registry`` (``build_model``,
-``make_train_batch``, ``make_decode_inputs``) for every family of the
+``train_batch_struct``, ``prefill_batch_struct``,
+``decode_inputs_struct``, ``make_train_batch``, ``make_decode_inputs``)
+for every family of the
 configuration registry: ``"dense"``, ``"moe"`` and ``"vlm"`` build
 ``DecoderLM``; ``"ssm"`` builds ``RWKVLM`` for a config named ``rwkv*``
 and raises for any other, as the reference does; ``"hybrid"`` builds
 ``HybridLM`` and ``"encdec"`` ``EncDecLM``. Tokens, image embeddings and
 audio frames come from an explicit ``torch.Generator``; they are other
 numbers than the reference's ``jax.random`` draws for the same seed, so
-tests carry batches across as numpy.
+tests carry batches across as numpy. The ``*_struct`` functions give
+meta tensors (shapes and dtypes, no storage) for the dry run, with int32
+tokens as the reference's.
 """
 from __future__ import annotations
 
@@ -23,18 +27,51 @@ from repro_torch.models.rwkv6 import RWKVLM
 from repro_torch.models.transformer import DecoderLM
 
 
-def build_model(cfg: ArchConfig):
+def build_model(cfg: ArchConfig, remat: bool = True):
+    """The family's model; ``remat`` recomputes each layer's activations
+    in the backward pass (training), as the reference's default."""
     if cfg.family in ("dense", "moe", "vlm"):
-        return DecoderLM(cfg)
+        return DecoderLM(cfg, remat=remat)
     if cfg.family == "ssm":
         if cfg.name.startswith("rwkv"):
-            return RWKVLM(cfg)
+            return RWKVLM(cfg, remat=remat)
         raise NotImplementedError(f"ssm arch {cfg.name}")
     if cfg.family == "hybrid":
-        return HybridLM(cfg)
+        return HybridLM(cfg, remat=remat)
     if cfg.family == "encdec":
-        return EncDecLM(cfg)
+        return EncDecLM(cfg, remat=remat)
     raise ValueError(f"unknown family {cfg.family}")
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_batch_struct(cfg: ArchConfig, batch: int, seq: int
+                       ) -> Dict[str, torch.Tensor]:
+    s = {"tokens": _meta((batch, seq), torch.int32),
+         "labels": _meta((batch, seq), torch.int32)}
+    if cfg.family == "vlm":
+        s["image_embeds"] = _meta((batch, cfg.num_image_tokens,
+                                   cfg.d_model), torch.bfloat16)
+    if cfg.family == "encdec":
+        s["frames"] = _meta((batch, cfg.encoder_seq, cfg.d_model),
+                            torch.bfloat16)
+    return s
+
+
+def prefill_batch_struct(cfg: ArchConfig, batch: int, seq: int
+                         ) -> Dict[str, torch.Tensor]:
+    s = train_batch_struct(cfg, batch, seq)
+    s.pop("labels")
+    return s
+
+
+def decode_inputs_struct(model, cfg: ArchConfig, batch: int,
+                         cache_len: int) -> Dict[str, object]:
+    return {"token": _meta((batch,), torch.int32),
+            "pos": _meta((batch,), torch.int32),
+            "cache": model.abstract_cache(batch, cache_len)}
 
 
 def make_train_batch(cfg: ArchConfig, batch: int, seq: int,

@@ -26,7 +26,12 @@ from torch import nn
 from torch.func import functional_call
 
 from repro_torch.configs.ltfl_paper import ResNetConfig
-from repro_torch.models.common import ParamSpec, cross_entropy_loss, init_leaf
+from repro_torch.models.common import (
+    ParamSpec,
+    abstract_params,
+    cross_entropy_loss,
+    init_leaf,
+)
 from repro_torch.models.convert import in_leaf_order
 
 Tree = Dict[str, torch.Tensor]
@@ -121,14 +126,15 @@ class ResNet(nn.Module):
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             shape, f32 = tuple(p.shape), torch.float32
+            axes = (None,) * len(shape)     # replicated, as the reference
             if leaf == "gamma":
-                specs[name] = ParamSpec(shape, "ones", dtype=f32)
+                specs[name] = ParamSpec(shape, axes, "ones", dtype=f32)
             elif leaf in ("beta", "head_b"):
-                specs[name] = ParamSpec(shape, "zeros", dtype=f32)
+                specs[name] = ParamSpec(shape, axes, "zeros", dtype=f32)
             elif name == "head_w":
-                specs[name] = ParamSpec(shape, "normal", dtype=f32)
+                specs[name] = ParamSpec(shape, axes, "normal", dtype=f32)
             else:
-                specs[name] = ParamSpec(shape, "normal", scale=1.4,
+                specs[name] = ParamSpec(shape, axes, "normal", scale=1.4,
                                         dtype=f32)
         return in_leaf_order(specs)
 
@@ -139,6 +145,9 @@ class ResNet(nn.Module):
             else generator.device
         return {name: init_leaf(spec, generator, device)
                 for name, spec in self.param_specs().items()}
+
+    def abstract_params(self) -> Dict[str, torch.Tensor]:
+        return abstract_params(self.param_specs())
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """images (B, H, W, C) -> logits (B, classes)."""

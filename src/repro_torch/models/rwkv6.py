@@ -21,7 +21,8 @@ Parameters are a flat dict in the reference's leaf order
 (``embed.head``, ``embed.tok``, ``final_norm.gamma``, ``layers.cm.mu``,
 ..., ``layers.tm.wv``); the ``layers.*`` leaves carry the stacked layer
 axis and a Python loop over layers replaces the reference's ``lax.scan``
-(its remat is a memory policy and is left out). ``CHUNK = 0`` (the
+(with ``remat``, the default, each layer under ``models.common.remat``,
+as the reference checkpoints its scan body). ``CHUNK = 0`` (the
 default, as in the reference) runs the recurrence one token at a time.
 
 The cache is the stacked recurrent state, O(1) in the sequence:
@@ -44,7 +45,10 @@ from repro_torch.models.common import (
     cross_entropy_loss,
     init_params,
     prefixed,
+    abstract_params,
+    remat,
     rms_norm,
+    shard_hint,
     stack_specs,
     store_layer,
     subtree,
@@ -67,35 +71,37 @@ def time_mix_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     d = cfg.d_model
     h, hd = cfg.n_heads, cfg.head_dim
     return {
-        "mu": ParamSpec((4, d), "uniform", scale=0.5),
-        "wr": ParamSpec((d, d), "normal"),
-        "wk": ParamSpec((d, d), "normal"),
-        "wv": ParamSpec((d, d), "normal"),
-        "wg": ParamSpec((d, d), "normal"),
-        "wo": ParamSpec((d, d), "normal"),
+        "mu": ParamSpec((4, d), (None, "embed"), "uniform", scale=0.5),
+        "wr": ParamSpec((d, d), ("embed", "heads_fused"), "normal"),
+        "wk": ParamSpec((d, d), ("embed", "heads_fused"), "normal"),
+        "wv": ParamSpec((d, d), ("embed", "heads_fused"), "normal"),
+        "wg": ParamSpec((d, d), ("embed", "heads_fused"), "normal"),
+        "wo": ParamSpec((d, d), ("heads_fused", "embed"), "normal"),
         # data-dependent decay LoRA (w0 + tanh(x A) B)
-        "w0": ParamSpec((d,), "zeros"),
-        "wa": ParamSpec((d, DECAY_LORA), "normal"),
-        "wb": ParamSpec((DECAY_LORA, d), "normal", scale=0.1),
-        "u": ParamSpec((h, hd), "uniform", scale=0.5),
-        "ln_x": ParamSpec((d,), "ones"),
+        "w0": ParamSpec((d,), ("embed",), "zeros"),
+        "wa": ParamSpec((d, DECAY_LORA), ("embed", None), "normal"),
+        "wb": ParamSpec((DECAY_LORA, d), (None, "embed"), "normal",
+                         scale=0.1),
+        "u": ParamSpec((h, hd), ("heads", "head_dim"), "uniform",
+                        scale=0.5),
+        "ln_x": ParamSpec((d,), ("embed",), "ones"),
     }
 
 
 def channel_mix_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "mu": ParamSpec((2, d), "uniform", scale=0.5),
-        "wk": ParamSpec((d, f), "normal"),
-        "wv": ParamSpec((f, d), "normal"),
-        "wr": ParamSpec((d, d), "normal"),
+        "mu": ParamSpec((2, d), (None, "embed"), "uniform", scale=0.5),
+        "wk": ParamSpec((d, f), ("embed", "d_ff"), "normal"),
+        "wv": ParamSpec((f, d), ("d_ff", "embed"), "normal"),
+        "wr": ParamSpec((d, d), ("embed", "embed_out"), "normal"),
     }
 
 
 def layer_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     d = cfg.d_model
-    return {"ln1.gamma": ParamSpec((d,), "ones"),
-            "ln2.gamma": ParamSpec((d,), "ones"),
+    return {"ln1.gamma": ParamSpec((d,), ("embed",), "ones"),
+            "ln2.gamma": ParamSpec((d,), ("embed",), "ones"),
             **prefixed("tm.", time_mix_specs(cfg)),
             **prefixed("cm.", channel_mix_specs(cfg))}
 
@@ -192,7 +198,9 @@ def time_mix_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
         o = o.transpose(0, 1)                                  # (B,S,H,hd)
     o = o.reshape(B, S, D).to(x.dtype)
     o = rms_norm(o, p["ln_x"]) * g
-    return o @ p["wo"], x[:, -1, :], state
+    out = o @ p["wo"]
+    return (shard_hint(out, ("batch", "act_seq", "act_embed")), x[:, -1, :],
+            state)
 
 
 def time_mix_step(cfg: ArchConfig, p: Tree, x: torch.Tensor,
@@ -228,6 +236,7 @@ def channel_mix_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     xk = x + (xs - x) * mu[0]
     xr = x + (xs - x) * mu[1]
     k = torch.square(F.relu(xk @ p["wk"]))
+    k = shard_hint(k, ("batch", "seq", "act_ff"))
     return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x[:, -1, :]
 
 
@@ -242,17 +251,19 @@ def channel_mix_step(cfg: ArchConfig, p: Tree, x: torch.Tensor,
 
 
 class RWKVLM:
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, remat: bool = True):
         if cfg.family != "ssm" or not cfg.name.startswith("rwkv"):
             raise ValueError(f"{cfg.name}: RWKVLM builds the rwkv configs "
                              "of the ssm family")
         self.cfg = cfg
+        self.remat = remat
 
     def param_specs(self) -> Dict[str, ParamSpec]:
         cfg = self.cfg
         return in_leaf_order({
             **prefixed("embed.", embedding_specs(cfg)),
-            "final_norm.gamma": ParamSpec((cfg.d_model,), "ones"),
+            "final_norm.gamma": ParamSpec((cfg.d_model,), ("embed",),
+                                        "ones"),
             **prefixed("layers.", stack_specs(cfg.n_layers,
                                               layer_specs(cfg))),
         })
@@ -260,6 +271,9 @@ class RWKVLM:
     def init(self, generator: torch.Generator,
              device: Optional[torch.device] = None) -> Tree:
         return init_params(self.param_specs(), generator, device)
+
+    def abstract_params(self) -> Tree:
+        return abstract_params(self.param_specs())
 
     # -------------------------------------------------------------- #
     def _layer_seq(self, lp: Tree, x: torch.Tensor, st: Tree
@@ -288,6 +302,13 @@ class RWKVLM:
                                    device=device),
         }
 
+    def _train_layer(self, lp: Tree, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor]:
+        """One layer of the training forward from zero states."""
+        x, _ = self._layer_seq(lp, x,
+                               self._zero_layer_state(x.shape[0], x.device))
+        return (x,)
+
     def _head(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, params["final_norm.gamma"])
         return lm_head(self.cfg, subtree(params, "embed."), x)
@@ -297,9 +318,11 @@ class RWKVLM:
         """-> (logits (B, S, V), a float32 zero: no auxiliary loss)."""
         x = embed_tokens(self.cfg, subtree(params, "embed."),
                          batch["tokens"])
-        zero_st = self._zero_layer_state(x.shape[0], x.device)
         for lp in unstack(params, "layers.", self.cfg.n_layers):
-            x, _ = self._layer_seq(lp, x, zero_st)
+            if self.remat:
+                x, = remat(self._train_layer, lp, x)
+            else:
+                x, = self._train_layer(lp, x)
         return self._head(params, x), torch.zeros(
             (), dtype=torch.float32, device=x.device)
 
@@ -322,11 +345,21 @@ class RWKVLM:
             "cm_prev": ((L, B, cfg.d_model), torch.bfloat16),
         }
 
+    def cache_axes(self) -> Dict[str, tuple]:
+        return {
+            "state": ("layers", "batch", "heads", "head_dim", None),
+            "tm_prev": ("layers", "batch", "act_embed"),
+            "cm_prev": ("layers", "batch", "act_embed"),
+        }
+
     def init_cache(self, batch_size: int, cache_len: int,
                    device: Optional[torch.device] = None) -> Tree:
         return {k: torch.zeros(sh, dtype=dt, device=device)
                 for k, (sh, dt) in self.cache_struct(batch_size,
                                                      cache_len).items()}
+
+    def abstract_cache(self, batch_size: int, cache_len: int) -> Tree:
+        return self.init_cache(batch_size, cache_len, torch.device("meta"))
 
     def decode_step(self, params: Tree, token: torch.Tensor,
                     pos: torch.Tensor, cache: Tree

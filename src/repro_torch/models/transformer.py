@@ -9,9 +9,10 @@ reference's leaf order (``embed.head``, ``embed.tok``,
 ...); the ``layers.*`` leaves carry a leading stacked layer axis, as the
 reference's scanned layers do, and MoE configs with ``first_k_dense``
 put that many dense layers ahead of them (``prefix_layers.<i>.*``). A
-Python loop over the layers replaces ``lax.scan``. The reference's remat
-(``jax.checkpoint``) is a memory policy with no effect on the numbers
-and is left out.
+Python loop over the layers replaces ``lax.scan``. With ``remat`` (the
+default, as the reference's) each stacked layer's training body runs
+under ``models.common.remat``: its activations are recomputed in the
+backward pass instead of kept, with the same numbers.
 
 MoE layers route through ``models.moe`` and MLA attention through
 ``models.mla``. The VLM family prepends stub image-patch embeddings
@@ -35,11 +36,14 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (
     ParamSpec,
+    abstract_params,
     apply_norm,
     cross_entropy_loss,
     init_params,
     norm_specs,
     prefixed,
+    remat,
+    shard_hint,
     stack_specs,
     subtree,
     unstack,
@@ -65,12 +69,13 @@ CACHE_DTYPE = torch.bfloat16
 class DecoderLM:
     """families: dense | moe | vlm (pre-norm attention + FFN blocks)."""
 
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, remat: bool = True):
         if cfg.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
                 f"{cfg.name}: DecoderLM builds the dense, moe and vlm "
                 f"families, not {cfg.family!r}")
         self.cfg = cfg
+        self.remat = remat
         self.n_prefix = cfg.moe.first_k_dense if cfg.moe else 0
         self.n_scanned = cfg.n_layers - self.n_prefix
 
@@ -109,6 +114,9 @@ class DecoderLM:
         """Fresh parameters from ``generator`` (drawn in leaf order)."""
         return init_params(self.param_specs(), generator, device)
 
+    def abstract_params(self) -> Tree:
+        return abstract_params(self.param_specs())
+
     def _layers(self, params: Tree):
         """Every layer's params in order: the prefix (dense) layers, then
         views of the stacked ones."""
@@ -140,8 +148,15 @@ class DecoderLM:
         ffn = subtree(lp, "ffn.")
         if "router" in ffn:                # MoE layer (prefix layers are dense)
             f, aux = moe_mod.moe_apply(cfg, ffn, h2)
-            return x + f, aux
-        return x + mlp_apply(cfg, ffn, h2), None
+        else:
+            f, aux = mlp_apply(cfg, ffn, h2), None
+        return shard_hint(x + f, ("batch", "act_seq", "act_embed")), aux
+
+    def _remat_block(self, lp: Tree, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, ...]:
+        """``_train_block`` as a tuple of tensors, for ``remat``."""
+        x, aux = self._train_block(lp, x)
+        return (x,) if aux is None else (x, aux)
 
     def _head(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
         x = apply_norm(self.cfg, x, params, "final_norm.")
@@ -152,8 +167,12 @@ class DecoderLM:
         """-> (logits (B, S_total, V), aux_loss scalar float32)."""
         x = self._embed_inputs(params, batch)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for lp in self._layers(params):
-            x, aux = self._train_block(lp, x)
+        for i, lp in enumerate(self._layers(params)):
+            if self.remat and i >= self.n_prefix:     # the scanned layers
+                x, *rest = remat(self._remat_block, lp, x)
+                aux = rest[0] if rest else None
+            else:
+                x, aux = self._train_block(lp, x)
             if aux is not None:
                 aux_total = aux_total + aux
         return self._head(params, x), aux_total
@@ -184,11 +203,21 @@ class DecoderLM:
         shape = (L, batch_size, cache_len, cfg.n_kv_heads, cfg.head_dim)
         return {"k": (shape, CACHE_DTYPE), "v": (shape, CACHE_DTYPE)}
 
+    def cache_axes(self) -> Dict[str, tuple]:
+        """Logical sharding axes of ``cache_struct``'s entries."""
+        if self.cfg.mla is not None:
+            return {"ckv": ("layers", "batch", "seq", "kv_lora")}
+        ax = ("layers", "batch", "seq", "kv_heads", "head_dim")
+        return {"k": ax, "v": ax}
+
     def init_cache(self, batch_size: int, cache_len: int,
                    device: Optional[torch.device] = None) -> Tree:
         return {k: torch.zeros(sh, dtype=dt, device=device)
                 for k, (sh, dt) in self.cache_struct(batch_size,
                                                      cache_len).items()}
+
+    def abstract_cache(self, batch_size: int, cache_len: int) -> Tree:
+        return self.init_cache(batch_size, cache_len, torch.device("meta"))
 
     def _decode_block(self, lp: Tree, x: torch.Tensor, cache_l: Tree,
                       pos: torch.Tensor) -> torch.Tensor:
@@ -215,6 +244,7 @@ class DecoderLM:
         Writes this token's k/v (or latent) into ``cache`` in place and
         returns (logits (B, V), cache), the same dict."""
         x = subtree(params, "embed.")["tok"][token]            # (B, D)
+        x = shard_hint(x, ("batch", "act_embed"))
         for i, lp in enumerate(self._layers(params)):
             x = self._decode_block(lp, x, {k: c[i] for k, c in cache.items()},
                                    pos)

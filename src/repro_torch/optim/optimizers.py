@@ -110,9 +110,15 @@ def apply_updates(params: Tree, updates: Tree) -> Tree:
     return {k: p + updates[k] for k, p in params.items()}
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
+def global_norm(tree: Tree, reduce_sum: Optional[Callable] = None
+                ) -> torch.Tensor:
+    """The L2 norm of every leaf together, in float32. When each leaf is
+    one shard, ``reduce_sum(name, s)`` sums its squares over the whole
+    leaf (the sharded step's all-reduce)."""
     total = None
-    for x in tree.values():
+    for name, x in tree.items():
         s = torch.sum(torch.square(x.to(torch.float32)))
+        if reduce_sum is not None:
+            s = reduce_sum(name, s)
         total = s if total is None else total + s
     return torch.sqrt(total)

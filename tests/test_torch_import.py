@@ -2,7 +2,8 @@
 
 A subprocess blocks jax (``sys.modules["jax"] = None``) and imports every
 module of ``repro_torch`` (the scanned and async engines, the device
-samplers and the checkpoints among them); no source file of the port,
+samplers, the checkpoints, the meshes, the rule table and the dry run
+among them); no source file of the port,
 no ``examples/torch_*.py`` script, nor ``chip_smoke.py``, has an import
 statement of ``jax`` or ``repro`` (docstrings that name a reference
 module are fine); and the port's sweep, controller, async-service and batched-serving
@@ -40,7 +41,11 @@ for name in ("repro_torch.fed.scan_engine", "repro_torch.fed.async_engine",
              "repro_torch.control.device_samplers",
              "repro_torch.control.device_controller",
              "repro_torch.control.device_bayesopt",
-             "repro_torch.control.program"):
+             "repro_torch.control.program",
+             "repro_torch.launch.dryrun", "repro_torch.launch.dryrun_lib",
+             "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+             "repro_torch.launch.op_analysis",
+             "repro_torch.core.sharded_step"):
     assert name in names, name
 print(len(names))
 """
