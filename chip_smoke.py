@@ -299,8 +299,10 @@ Phases; any failure exits non-zero before the result lines:
    (2, 16, 16) meshes and the reference's three CI pairs on the (2, 4)
    test mesh (granite-8b x decode_32k, whisper-medium x prefill_32k,
    granite-8b x train_4k as a scanned segment of 2 rounds); each record
-   printed with ``fits_hbm`` against 80 GB; (b) the sharded step
-   (``make_fl_train_step(param_shardings=, gather_shardings=)``) on an
+   printed with ``fits_hbm`` against 80 GB; (b) the sharded step on its
+   whole-weight path (``make_fl_train_step(param_shardings=,
+   gather_shardings=, tensor_parallel=False)``, the path of every family
+   but the dense one) on an
    NCCL world of one and a ("data", "model") = (1, 1) ``DeviceMesh``,
    params DTensors placed by the rule table, phase 9's run (granite-8b at
    its published widths, 2 layers, the launcher's defaults), 3 steps
@@ -319,6 +321,20 @@ Phases; any failure exits non-zero before the result lines:
    (the forward alone) bitwise, the later losses, the first step's
    aggregate norm and the weights after the last step within
    ``REMAT_*_REL`` of each other, both peaks and both step times.
+30. tensor parallelism over 'model' for the dense family
+   (``models.tensor_parallel``): (a) the sharded step on its tensor-
+   parallel path (the dense family's default) on an NCCL world of one and
+   a (1, 1) mesh, phase 9's run, 3 steps with SGD and 3 with the int8
+   wire format: losses and weights bitwise the plain step's, the SGD
+   losses bitwise phase 9's, launches 12 / 9 / 18 and 0 / 9 / 18 a step;
+   (b) meta dry runs of granite-8b x train_4k on (16, 16) and
+   (2, 16, 16) under {"act": "seq"} and of granite-8b x prefill_32k and
+   x decode_32k on (16, 16), started with phase 29's, each printed with
+   phase 29's baseline train records beside the whole-weight step's
+   records of the same pairs (``WHOLE_WEIGHT_RECORDS``). No 'model'
+   axis of more than one rank runs on the one card (NCCL puts no two
+   ranks on a card; gloo's all-gather of CUDA tensors ends the process):
+   tests/test_torch_tensor_parallel.py runs eight on the CPU.
 
 ``--profile DIR`` also writes torch.profiler tables of one edge round
 (``DIR/profile_round.txt``), one datacenter step
@@ -3815,12 +3831,13 @@ REMAT_NORM_REL = 3e-4
 REMAT_WEIGHT_REL = 2e-3
 
 
-def _start_dryruns(out_dir: Path):
-    """Phase 29 (a)'s dry runs, each in its own process, started now."""
+def _start_dryruns(out_dir: Path, pairs=DRYRUN_PAIRS):
+    """Dry runs of ``pairs`` (phase 29 (a)'s by default), each in its own
+    process, started now."""
     import os
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     procs = []
-    for i, (arch, shape, flags, variant) in enumerate(DRYRUN_PAIRS):
+    for i, (arch, shape, flags, variant) in enumerate(pairs):
         d = out_dir / f"pair{i}"
         procs.append((d, subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -3830,9 +3847,9 @@ def _start_dryruns(out_dir: Path):
     return procs
 
 
-def _finish_dryruns(procs):
+def _finish_dryruns(procs, pairs=DRYRUN_PAIRS):
     records = []
-    for (d, p), (arch, shape, flags, variant) in zip(procs, DRYRUN_PAIRS):
+    for (d, p), (arch, shape, flags, variant) in zip(procs, pairs):
         try:
             out, err = p.communicate(timeout=300)
         except subprocess.TimeoutExpired:
@@ -3871,9 +3888,11 @@ def _step_launches(fn):
     return out, {k: v for m in modules for k, v in m.LAUNCHES.items()}
 
 
-def phase_launch_tooling(dc_records, dc_peak):
+def phase_launch_tooling(dc_records, dc_peak, more_pairs=()):
     """Phase 29: the dry run, the sharded step on a (1, 1) mesh against
-    the plain step, the dry run against the card, and remat."""
+    the plain step, the dry run against the card, and remat. The dry runs
+    of ``more_pairs`` (phase 30's) start with phase 29's; their processes
+    come back unfinished under "more_procs"."""
     import gc
     import os
     import socket
@@ -3892,6 +3911,7 @@ def phase_launch_tooling(dc_records, dc_peak):
     t0 = time.time()
     tmp = Path(tempfile.mkdtemp(prefix="dryrun_torch_"))
     procs = _start_dryruns(tmp)
+    more = _start_dryruns(tmp / "more", more_pairs)
     # (b) the sharded step on an NCCL world of one
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -3923,7 +3943,8 @@ def phase_launch_tooling(dc_records, dc_peak):
         plain = make_fl_train_step(model, sgd(args.lr), c, **kw)
         sharded = make_fl_train_step(model, sgd(args.lr), c,
                                      param_shardings=stacked,
-                                     gather_shardings=gather, **kw)
+                                     gather_shardings=gather,
+                                     tensor_parallel=False, **kw)
         p_plain = {k: v.clone() for k, v in run.params.items()}
         p_sh = {k: sh.distribute(v.clone(), psh[k])
                 for k, v in run.params.items()}
@@ -3957,7 +3978,8 @@ def phase_launch_tooling(dc_records, dc_peak):
                      f"plain step's at {diff}")
             rows.append({"loss": loss, "step_s": sh_s, "plain_step_s":
                          plain_s, "launches": got, "peak_above_base": peak})
-            log(f"[launch] sharded {label} step {i} on (1, 1): "
+            log(f"[launch] sharded {label} step {i} on (1, 1), whole "
+                f"weights: "
                 f"loss={loss!r} (plain {loss_plain!r}, bitwise) weights "
                 f"bitwise; step_s={sh_s!r} plain_step_s={plain_s!r} "
                 f"launches={got}")
@@ -4069,10 +4091,147 @@ def phase_launch_tooling(dc_records, dc_peak):
     torch.cuda.empty_cache()
     records = _finish_dryruns(procs)
     log(f"[launch] phase 29 in {time.time() - t0:.1f} s")
-    return {"steps": result, "dryrun": records,
+    return {"steps": result, "dryrun": records, "more_procs": more,
             "flops": int(counts["flops"]),
             "peak_predicted": counts["peak_bytes"],
             "peak_measured": measured_peak, "remat": remat_rows}
+
+
+# phase 30 (c): the tensor-parallel dry runs, started with phase 29's
+TP_DRYRUN_PAIRS = (
+    ("granite-8b", "train_4k", [], '{"act": "seq"}'),
+    ("granite-8b", "train_4k", ["--multi-pod"], '{"act": "seq"}'),
+    ("granite-8b", "prefill_32k", [], "{}"),
+    ("granite-8b", "decode_32k", [], "{}"),
+)
+# the same pairs on the whole-weight path (the dry run as it stood before
+# tensor parallelism; meta records, not measurements): peak bytes a
+# device, t_memory s, collectives, wire bytes
+WHOLE_WEIGHT_RECORDS = {
+    ("train_4k", "data16xmodel16"): (45102301452, 1.8486313295749253, 88,
+                                     32892649425),
+    ("train_4k", "pod2xdata16xmodel16"): (122553254384, 9.406890434152835,
+                                          89, 18446943305.5),
+    ("prefill_32k", "data16xmodel16"): (40711372800, 37.47164628864955, 9,
+                                        15476981760),
+    ("decode_32k", "data16xmodel16"): (95439208512, 0.12563725978746268, 9,
+                                       15476981760),
+}
+def _tp_records(dry_records, procs):
+    """Phase 30 (c): the TP dry runs' records, and phase 29's baseline
+    train records, each beside the whole-weight record of its pair."""
+    records = [r for r in dry_records if r["mode"] == "train"
+               and r["variant"] == {} and "model16" in r["mesh"]]
+    records += _finish_dryruns(procs, TP_DRYRUN_PAIRS)
+    for rec in records:
+        ww = WHOLE_WEIGHT_RECORDS.get((rec["shape"], rec["mesh"]))
+        beside = ("no whole-weight record" if ww is None else
+                  f"whole weights: bytes_per_device={ww[0]} "
+                  f"t_memory={ww[1]} collectives={ww[2]} wire={ww[3]}")
+        log(f"[tp] dry run {rec['arch']} x {rec['shape']} on {rec['mesh']} "
+            f"{rec['variant']}: bytes_per_device={rec['bytes_per_device']!r}"
+            f" fits_hbm={rec['fits_hbm']} (80 GB) t_memory="
+            f"{rec['t_memory']!r} collectives={rec['collective_count']} "
+            f"wire={rec['collective_wire_bytes']!r}; {beside}")
+    return records
+
+
+def phase_tensor_parallel(dc_records, dry_records, procs):
+    """Phase 30: the dense family's tensor-parallel step on (1, 1)
+    against the plain step and phase 9, and the TP dry runs. A real
+    'model' axis needs two ranks: NCCL puts no two on one card, and
+    gloo's all-gather of CUDA tensors ends the process (PERF.md §7), so
+    the card runs none; the CPU tests run eight."""
+    import gc
+    import socket
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.ltfl_step import make_fl_train_step
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import sgd
+    t0 = time.time()
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+
+    # (a) the TP path on an NCCL world of one
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    args = train.build_parser().parse_args([])
+    c = args.clients
+    run = train.DatacenterRun(dc_arch(), args, "cuda")
+    model = run.model
+    rules = sh.base_rules(mesh, client_axes=("data",))
+    psh = sh.param_shardings(mesh, model, rules)
+    stacked = sh.stacked_shardings(mesh, model, rules, c, "client")
+    gather = sh.stacked_shardings(mesh, model, rules, c, None)
+    bsh = sh.batch_shardings(mesh, rules, run.batch, leading="client")
+    dbatch = {k: sh.distribute(v, bsh[k]) for k, v in run.batch.items()}
+    result = {}
+    for int8 in (False, True):
+        label = "int8" if int8 else "sgd"
+        kw = dict(prune_block=args.prune_block, prune_kind="block",
+                  int8_collective=int8)
+        plain = make_fl_train_step(model, sgd(args.lr), c, **kw)
+        tp_step = make_fl_train_step(model, sgd(args.lr), c,
+                                     param_shardings=stacked,
+                                     gather_shardings=gather, **kw)
+        p_plain = {k: v.clone() for k, v in run.params.items()}
+        p_tp = {k: sh.distribute(v.clone(), psh[k])
+                for k, v in run.params.items()}
+        rows = []
+        for i in range(LAUNCH_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            p_plain, _, _, m_plain = plain(p_plain, (), (), run.batch,
+                                           run.controls, i)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            (p_tp, _, _, m_tp), got = _step_launches(
+                lambda: tp_step(p_tp, (), (), dbatch, run.controls, i))
+            torch.cuda.synchronize()
+            tp_s = time.perf_counter() - t1
+            want = {"stochastic_quant": 0 if int8 else 12, "block_norms": 9,
+                    "apply_block_mask": 18, "block_sparse_matmul": 0,
+                    "block_sparse_matmul_wgmma": 0,
+                    "block_sparse_matmul_simt": 0}
+            if got != want:
+                fail(f"TP {label} step {i}: launches {got}, want {want}")
+            loss, loss_plain = float(m_tp["loss"]), float(m_plain["loss"])
+            if not math.isfinite(loss) or loss != loss_plain:
+                fail(f"TP {label} step {i}: loss {loss!r} vs plain "
+                     f"{loss_plain!r}")
+            if not int8 and loss != dc_records[i]["loss"]:
+                fail(f"TP sgd step {i}: loss {loss!r} vs phase 9's "
+                     f"{dc_records[i]['loss']!r}")
+            diff = [k for k in p_plain
+                    if not torch.equal(p_tp[k].to_local(), p_plain[k])]
+            if diff:
+                fail(f"TP {label} step {i}: weights differ from the plain "
+                     f"step's at {diff}")
+            rows.append({"loss": loss, "step_s": tp_s, "plain_step_s":
+                         plain_s, "launches": got})
+            log(f"[tp] (1, 1) {label} step {i}: loss={loss!r} (plain "
+                f"{loss_plain!r}, bitwise"
+                + ("" if int8 else ", phase 9's bitwise")
+                + f") weights bitwise; step_s={tp_s!r} "
+                f"plain_step_s={plain_s!r} launches={got}")
+        result[label] = rows
+        del p_plain, p_tp, plain, tp_step
+    dist.destroy_process_group()
+    del run, model, dbatch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) the dry runs
+    records = _tp_records(dry_records, procs)
+    log(f"[tp] phase 30 in {time.time() - t0:.1f} s")
+    return {"steps": result, "dryrun": records}
 
 
 def serve_arch(name: str):
@@ -4184,8 +4343,12 @@ def main() -> None:
     host = phase_host_leftovers(mats, dc_records, dc_peak)
     stamp("28")
     # the launch tooling: dry run, the sharded step, remat
-    tooling = phase_launch_tooling(dc_records, dc_peak)
+    tooling = phase_launch_tooling(dc_records, dc_peak, TP_DRYRUN_PAIRS)
     stamp("29")
+    # tensor parallelism for the dense family
+    tensor = phase_tensor_parallel(dc_records, tooling["dryrun"],
+                                   tooling.pop("more_procs"))
+    stamp("30")
     log(f"[done] {time.time() - t_start:.1f} s")
 
     def per_family(key):
@@ -4199,6 +4362,11 @@ def main() -> None:
     def tooling_launches(key):
         """Phase 29 (b)'s launches a step (the first step's; all equal)."""
         return {v: tooling["steps"][v][0]["launches"][key]
+                for v in ("sgd", "int8")}
+
+    def tp_launches(key):
+        """Phase 30 (a)'s launches a step (the first step's; all equal)."""
+        return {v: tensor["steps"][v][0]["launches"][key]
                 for v in ("sgd", "int8")}
 
     def block_row(name, key, launches, err, extra):
@@ -4226,6 +4394,7 @@ def main() -> None:
             "family_datacenter_launches": per_family(name),
             "host_leftover_launches_per_step": host_launches(name),
             "sharded_step_launches_per_step": tooling_launches(name),
+            "tensor_parallel_step_launches_per_step": tp_launches(name),
             **extra,
         }
 
@@ -4268,6 +4437,8 @@ def main() -> None:
         "host_leftover_launches_per_step": host_launches("stochastic_quant"),
         "sharded_step_launches_per_step":
             tooling_launches("stochastic_quant"),
+        "tensor_parallel_step_launches_per_step":
+            tp_launches("stochastic_quant"),
     }, block_row("block_norms", "norms", dc_launches["block_norms"],
                  norm_err, {}),
         block_row("apply_block_mask", "mask",
@@ -4303,6 +4474,8 @@ def main() -> None:
         "largest_leaf_bound_ms": st["per_shape"]["embed.head"]["bound_ms"],
         "sharded_step_launches_per_step":
             tooling_launches("block_sparse_matmul"),
+        "tensor_parallel_step_launches_per_step":
+            tp_launches("block_sparse_matmul"),
         "path": {"wgmma": bsmm_launches["block_sparse_matmul_wgmma"],
                  "simt": bsmm_launches["block_sparse_matmul_simt"]},
         "check_paths": bsmm_checks,

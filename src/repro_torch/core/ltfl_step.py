@@ -125,7 +125,8 @@ def make_fl_train_step(model, optimizer: Optimizer, n_clients: int, *,
                        int8_collective: bool = False,
                        int8_uniforms: Optional[UniformSource] = None,
                        param_shardings=None,
-                       gather_shardings=None
+                       gather_shardings=None,
+                       tensor_parallel: Optional[bool] = None
                        ) -> Callable:
     """Build step(params, opt_state, comp_state, batch, controls, seed)
     -> (params, opt_state, comp_state, metrics).
@@ -143,8 +144,12 @@ def make_fl_train_step(model, optimizer: Optimizer, n_clients: int, *,
     shaped like the STACKED (C, ...) gradients, as the reference's) makes
     this the step over their mesh, ``core.sharded_step``: params and
     batch are DTensors and ``gather_shardings`` lays out the int8
-    levels' all-gather. With both None the step is the one-device step
-    above."""
+    levels' all-gather. There a dense-family model computes on its
+    weight shards (tensor parallelism over 'model') and the other
+    families on whole weights; ``tensor_parallel`` False asks for whole
+    weights for a dense model too, and True for a family without the
+    tensor-parallel path raises. With both shardings None the step is
+    the one-device step above."""
     if compressor is None:
         comp = ltfl_quantizer() if quantize else identity_compressor()
     else:
@@ -269,7 +274,8 @@ def make_fl_train_step(model, optimizer: Optimizer, n_clients: int, *,
             do_prune=prune,
             int8_wire=int8_wire, int8_uniforms=int8_uniforms,
             alpha_fn=_alpha, param_shardings=param_shardings,
-            gather_shardings=gather_shardings)
+            gather_shardings=gather_shardings,
+            tensor_parallel=_tensor_parallel(model, tensor_parallel))
         sharded.compressor = comp
         sharded.init_comp_state = \
             lambda params: comp.init_state(params, n_clients)
@@ -279,6 +285,19 @@ def make_fl_train_step(model, optimizer: Optimizer, n_clients: int, *,
     step.lanes = lanes
     step.init_comp_state = lambda params: comp.init_state(params, n_clients)
     return step
+
+
+def _tensor_parallel(model, asked: Optional[bool]) -> bool:
+    """Whether the sharded step computes on weight shards: the dense
+    family does (``models.tensor_parallel``), the others compute whole
+    weights."""
+    cfg = getattr(model, "cfg", None)
+    dense = getattr(cfg, "family", None) == "dense"
+    if asked and not dense:
+        raise NotImplementedError(
+            f"{getattr(cfg, 'name', model)}: tensor parallelism covers the "
+            f"dense family, not {getattr(cfg, 'family', None)!r}")
+    return dense if asked is None else bool(asked)
 
 
 def make_plain_train_step(model, optimizer: Optimizer) -> Callable:

@@ -15,8 +15,40 @@ The layout. ``param_shardings`` (one ``launch.sharding.NamedSharding``
 per leaf, shaped like the stacked (C, ...) gradients) names the client
 axes (the mesh dims of each spec's leading entry) and, for the rest of
 each leaf, the parameters' own layout: the params come in as DTensors
-placed that way. The port has no tensor parallelism: a rank computes
-its clients' gradients with whole weights, so
+placed that way.
+
+The dense family (``tensor_parallel``, chosen by ``make_fl_train_step``
+from the model's family) computes on its weight shards
+(``models.tensor_parallel``): the forward and backward passes run with
+each leaf's 'model' shard as it rests, and the collectives over 'model'
+are the model's own. So
+
+1. each leaf is pruned on its shards for the rank's C_l clients:
+   ``block_norms`` runs on the shard at sub-tiles as wide as the shard
+   holds (gcd of the shard's extent and the block; the whole tile where
+   the shard holds whole tiles), the sub-tile norms of every shard are
+   all-gathered and combined into whole-tile norms (the root of the sum
+   of squares), ranked whole, and ``apply_block_mask`` writes the C_l
+   pruned copies of the shard at the same sub-tiles. Those copies feed
+   the forward pass as they are: no 'model'-sharded weight is gathered
+   (a leaf also sharded over another non-client dim, as 'embed' over
+   'data' under fsdp, is gathered over that dim only). A leaf pruned by
+   magnitude gathers its importance |w| (float32) and ranks it whole;
+   1-D leaves are exempt;
+2. each client's batch rows are split over every non-client dim but
+   'model' whose size divides them;
+3. per-client losses and gradients come from ``vmap(grad_and_value)``
+   under the tensor-parallel context, so the gradients leave it in the
+   'model' layout of the parameters; they are averaged over the
+   row-splitting dims (and reduce-scattered over a further shard dim
+   such as fsdp's) and gated by the shard's slice of the mask;
+4. and 5. as below.
+
+On a 'model' dim of one rank the model computes as on one device, and
+the step is bitwise the unsharded step.
+
+The other families (``tensor_parallel`` False) compute their clients'
+gradients with whole weights, so
 
 1. each leaf is pruned on its shards for the rank's C_l = C / |client
    axes| clients: ``block_norms`` runs on the rank's shard, the tile
@@ -82,8 +114,14 @@ from repro_torch.core.quantization import (
     range_sq_sum,
 )
 from repro_torch.kernels import ops
-from repro_torch.kernels.block_prune import apply_block_mask
-from repro_torch.launch.sharding import contiguous_strides, local_slice
+from repro_torch.kernels.block_prune import apply_block_mask, block_norms
+from repro_torch.models import tensor_parallel as tp
+from repro_torch.launch.sharding import (
+    contiguous_strides,
+    local_index,
+    local_slice,
+    model_placements,
+)
 from repro_torch.optim import apply_updates, global_norm
 
 Tree = Dict[str, torch.Tensor]
@@ -132,6 +170,8 @@ class Layout:
         for d, n in enumerate(self.sizes):
             self.rank = self.rank * n + coord[d]
         self.shardings = param_shardings
+        self.model_dim = (self.names.index("model") if "model" in self.names
+                          else None)
 
     @property
     def rows(self) -> slice:
@@ -206,16 +246,24 @@ def _tile_index(shape, mesh, placements, block: int, lead: int = 0):
     return tuple(idx)
 
 
+def _sub_block(local_shape, block: int) -> Tuple[int, int]:
+    """The sub-tile a shard of ``local_shape`` holds whole: in each of the
+    last two dims the gcd of the shard's extent and the block."""
+    return (math.gcd(local_shape[-2], block),
+            math.gcd(local_shape[-1], block))
+
+
 def make_sharded_step(*, model_loss_grad: Callable, optimizer, n_clients: int,
                       comp, prune: Callable, prune_kind: str,
                       prune_block: int, do_prune: bool, int8_wire: bool,
                       int8_uniforms, alpha_fn: Callable,
                       param_shardings: Dict[str, Any],
-                      gather_shardings: Optional[Dict[str, Any]]
-                      ) -> Callable:
+                      gather_shardings: Optional[Dict[str, Any]],
+                      tensor_parallel: bool = False) -> Callable:
     """The step over the mesh of ``param_shardings`` (see the module
-    docstring); the arguments are ``make_fl_train_step``'s pieces."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    docstring); the arguments are ``make_fl_train_step``'s pieces, and
+    ``tensor_parallel`` picks the dense family's path."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.func import vmap
 
     if comp.name not in ("ltfl", "none"):
@@ -288,6 +336,142 @@ def make_sharded_step(*, model_loss_grad: Callable, optimizer, n_clients: int,
             tiled.add(k)
         return pruned, masks, tiled
 
+    def compute_layout(p) -> tuple:
+        """Placements of the (C, ...) stack a rank computes with: clients
+        on their dims, the leaf's 'model' shard kept, the rest whole."""
+        md = lay.model_dim
+        return tuple(
+            Shard(0) if i in lay.client_dims
+            else Shard(q.dim + 1) if (i == md and isinstance(q, Shard))
+            else Replicate() for i, q in enumerate(p.placements))
+
+    def prune_tp(params: Dict[str, Any], rho: torch.Tensor):
+        """Per leaf, this rank's C_l pruned shards in ``compute_layout``
+        and its gate: (mask over the whole leaf, sub-tile) for a tiled
+        leaf, (element mask, None) for one pruned by magnitude, None for
+        an exempt one."""
+        pruned, gates = {}, {}
+        for k, p in params.items():
+            pl = tuple(Replicate() if i in lay.client_dims else q
+                       for i, q in enumerate(p.placements))
+            w = (p if tuple(p.placements) == pl
+                 else p.redistribute(mesh, pl)).to_local()
+            held = tuple(Shard(0) if i in lay.client_dims
+                         else Shard(q.dim + 1) if isinstance(q, Shard)
+                         else q for i, q in enumerate(pl))
+            if p.dim() < 2:                                  # exempt
+                pruned[k] = p.redistribute(
+                    mesh, model_placements(p.placements, mesh)).to_local()
+                gates[k] = None
+                continue
+            if prune_kind == "block" and tileable(p, block):
+                sub = _sub_block(w.shape, block)
+                grid = tuple(p.shape[:-2]) + (p.shape[-2] // sub[0],
+                                              p.shape[-1] // sub[1])
+                norms = block_norms(                          # B2
+                    w.reshape(-1, w.shape[-1]).contiguous(), sub)
+                norms = DTensor.from_local(
+                    norms.reshape(tuple(w.shape[:-2]) + (
+                        w.shape[-2] // sub[0], w.shape[-1] // sub[1])),
+                    mesh, pl, run_check=False, shape=torch.Size(grid),
+                    stride=contiguous_strides(grid)).full_tensor()
+                r, c_ = block // sub[0], block // sub[1]
+                if (r, c_) != (1, 1):                # sub-tiles to tiles
+                    norms = torch.sqrt(torch.sum(torch.square(
+                        norms.reshape(grid[:-2] + (grid[-2] // r, r,
+                                                   grid[-1] // c_, c_))),
+                        dim=(-3, -1)))
+                mask = ops.rank_mask(norms, rho)       # (C_l, *tile grid)
+                del norms
+                if (r, c_) != (1, 1):
+                    mask = mask.repeat_interleave(r, -2) \
+                        .repeat_interleave(c_, -1)
+                part = mask[(slice(None),) + local_index(grid, mesh, pl)]
+                n = part.shape[0]
+                shard = apply_block_mask(                     # B3
+                    w.reshape(-1, w.shape[-1]).contiguous(),
+                    part.contiguous().reshape(n, -1, part.shape[-1]), sub
+                ).reshape((n,) + tuple(w.shape))
+                gates[k] = (mask, sub)
+            else:                                      # by magnitude
+                imp = w.to(torch.float32).abs()
+                if any(isinstance(q, Shard) for q in pl):
+                    imp = DTensor.from_local(
+                        imp, mesh, pl, run_check=False, shape=p.shape,
+                        stride=contiguous_strides(tuple(p.shape))
+                    ).full_tensor()
+                mask = ops.rank_mask(imp, rho)              # (C_l, *leaf)
+                del imp
+                part = mask[(slice(None),) + local_index(p.shape, mesh, pl)]
+                shard = w * part.to(w.dtype)
+                gates[k] = (mask, None)
+            del w
+            want = compute_layout(p)
+            if held != want:
+                shape = (n_clients,) + tuple(p.shape)
+                shard = DTensor.from_local(
+                    shard, mesh, held, run_check=False,
+                    shape=torch.Size(shape),
+                    stride=contiguous_strides(shape)
+                ).redistribute(mesh, want).to_local()
+            pruned[k] = shard
+        return pruned, gates
+
+    def tp_gate(k: str, g: torch.Tensor, gate) -> torch.Tensor:
+        """The gradient shard ``g`` (C_l, ...) in the parameter layout
+        times its slice of the mask."""
+        mask, sub = gate
+        place = lay.shardings[k].placements
+        shape = (n_clients,) + tuple(mask.shape[1:])
+        part = mask[local_index(shape, mesh, place, lead=1)].contiguous()
+        if sub is None:
+            return g * part.to(g.dtype)
+        c = g.shape[0]
+        return apply_block_mask(g.reshape(c, -1, g.shape[-1]).contiguous(),
+                                part.reshape(c, -1, part.shape[-1]), sub
+                                ).reshape(g.shape)
+
+    def tp_step(params, batch, controls, shapes_of):
+        """Steps 1-3 of the dense family: the gated gradient shards in the
+        parameter layout, the losses and the row-splitting dims."""
+        if do_prune:
+            pruned, gates = prune_tp(params, lay.clients(controls["rho"]))
+        else:
+            pruned = {k: p.redistribute(
+                mesh, model_placements(p.placements, mesh)).to_local()
+                for k, p in params.items()}
+            gates = {k: None for k in params}
+        in_dims = {k: 0 if v.dim() > params[k].dim() else None
+                   for k, v in pruned.items()}
+        rows, row_dims = _local_rows(batch, lay, keep=lay.model_dim)
+        n_row = math.prod(lay.sizes[d] for d in row_dims)
+        outer = tp.current()
+        ctx = (outer if outer is not None and outer.mesh is mesh
+               else tp.context_for(mesh))
+        with tp.scope(ctx):
+            grads, losses = vmap(model_loss_grad, in_dims=(in_dims, 0))(
+                pruned, rows)
+        del pruned, rows
+        local = {}
+        for k in list(grads):
+            g = grads.pop(k)
+            if n_row > 1:
+                g = g / n_row
+            have = tuple(Partial() if i in row_dims else q
+                         for i, q in enumerate(compute_layout(params[k])))
+            want = lay.shardings[k].placements
+            if have != tuple(want):
+                g = DTensor.from_local(
+                    g, mesh, have, run_check=False,
+                    shape=torch.Size(shapes_of[k]),
+                    stride=contiguous_strides(shapes_of[k])
+                ).redistribute(mesh, want).to_local()
+            if gates[k] is not None:
+                g = tp_gate(k, g, gates[k])
+            local[k] = g
+            del g
+        return local, losses, row_dims, n_row
+
     def step(params: Dict[str, Any], opt_state, comp_state,
              batch: Dict[str, Any], controls: Dict[str, torch.Tensor],
              seed):
@@ -297,46 +481,12 @@ def make_sharded_step(*, model_loss_grad: Callable, optimizer, n_clients: int,
                 raise TypeError(f"{k}: the sharded step takes DTensor "
                                 "params (launch.sharding.distribute)")
             shapes_of[k] = (n_clients,) + tuple(p.shape)
-        # 1. this rank's clients' pruned leaves
-        if do_prune:
-            pruned, masks, tiled = prune_shards(
-                params, lay.clients(controls["rho"]))
+        if tensor_parallel:
+            local, losses, row_dims, n_row = tp_step(params, batch, controls,
+                                                     shapes_of)
         else:
-            pruned = {k: p.full_tensor() for k, p in params.items()}
-            masks, tiled = None, set()
-        in_dims = {k: 0 if v.dim() > params[k].dim() else None
-                   for k, v in pruned.items()}
-        # 2. this rank's rows of its clients' batches
-        rows, row_dims = _local_rows(batch, lay)
-        n_row = math.prod(lay.sizes[d] for d in row_dims)
-        # 3. gradients averaged over the rows, laid out by leaf, gated
-        grads, losses = vmap(model_loss_grad, in_dims=(in_dims, 0))(
-            pruned, rows)
-        del pruned, rows
-        part = lay.placements(row_dims)
-        local = {}
-        for k in list(grads):
-            g = grads.pop(k)
-            shard_gate = None
-            if k in tiled:
-                idx = _tile_index(shapes_of[k], mesh,
-                                  lay.shardings[k].placements, block, lead=1)
-                if idx is not None:
-                    shard_gate = masks[k][idx].contiguous()
-            if do_prune and shard_gate is None:
-                g = gate_pytree({k: g}, {k: masks[k]}, block)[k]
-            if n_row > 1:
-                g = g / n_row
-            d = DTensor.from_local(g, mesh, part, run_check=False,
-                                   shape=torch.Size(shapes_of[k]),
-                                   stride=contiguous_strides(shapes_of[k]))
-            g = d.redistribute(mesh, lay.shardings[k].placements).to_local()
-            del d
-            if shard_gate is not None:
-                g = gate_pytree({k: g}, {k: shard_gate}, block)[k]
-            local[k] = g
-            del g, shard_gate
-        del masks
+            local, losses, row_dims, n_row = whole_step(params, batch,
+                                                        controls, shapes_of)
         losses = lay.gather_clients(losses, row_dims, n_row)
         rsq = lay.gather_clients(range_sq_sum(
             local, client_axis=True, reduce_range=lay.reduce_range,
@@ -403,13 +553,60 @@ def make_sharded_step(*, model_loss_grad: Callable, optimizer, n_clients: int,
         }
         return out, opt_state, comp_state, metrics
 
+    def whole_step(params, batch, controls, shapes_of):
+        """Steps 1-3 of the other families, with whole weights."""
+        # 1. this rank's clients' pruned leaves
+        if do_prune:
+            pruned, masks, tiled = prune_shards(
+                params, lay.clients(controls["rho"]))
+        else:
+            pruned = {k: p.full_tensor() for k, p in params.items()}
+            masks, tiled = None, set()
+        in_dims = {k: 0 if v.dim() > params[k].dim() else None
+                   for k, v in pruned.items()}
+        # 2. this rank's rows of its clients' batches
+        rows, row_dims = _local_rows(batch, lay)
+        n_row = math.prod(lay.sizes[d] for d in row_dims)
+        # 3. gradients averaged over the rows, laid out by leaf, gated
+        with tp.scope(None):
+            grads, losses = vmap(model_loss_grad, in_dims=(in_dims, 0))(
+                pruned, rows)
+        del pruned, rows
+        part = lay.placements(row_dims)
+        local = {}
+        for k in list(grads):
+            g = grads.pop(k)
+            shard_gate = None
+            if k in tiled:
+                idx = _tile_index(shapes_of[k], mesh,
+                                  lay.shardings[k].placements, block, lead=1)
+                if idx is not None:
+                    shard_gate = masks[k][idx].contiguous()
+            if do_prune and shard_gate is None:
+                g = gate_pytree({k: g}, {k: masks[k]}, block)[k]
+            if n_row > 1:
+                g = g / n_row
+            d = DTensor.from_local(g, mesh, part, run_check=False,
+                                   shape=torch.Size(shapes_of[k]),
+                                   stride=contiguous_strides(shapes_of[k]))
+            g = d.redistribute(mesh, lay.shardings[k].placements).to_local()
+            del d
+            if shard_gate is not None:
+                g = gate_pytree({k: g}, {k: shard_gate}, block)[k]
+            local[k] = g
+            del g, shard_gate
+        del masks
+        return local, losses, row_dims, n_row
+
     step.layout = lay
     return step
 
 
-def _local_rows(batch: Dict[str, Any], lay: Layout):
+def _local_rows(batch: Dict[str, Any], lay: Layout,
+                keep: Optional[int] = None):
     """This rank's (C_l, B_l, ...) rows of every batch leaf, and the mesh
-    dims that split the rows (the batch's own and those added here)."""
+    dims that split the rows (the batch's own and those added here);
+    mesh dim ``keep`` (the tensor-parallel 'model' dim) holds every row."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     first = next(iter(batch.values()))
     if not isinstance(first, DTensor):
@@ -421,12 +618,15 @@ def _local_rows(batch: Dict[str, Any], lay: Layout):
             raise ValueError(f"batch placements {tuple(pl)}: the client "
                              f"dim must be Shard(0) on mesh dims "
                              f"{lay.client_dims} exactly")
+    if keep is not None:
+        pl[keep] = Replicate()
     n_rows = first.shape[1] if first.dim() > 1 else 1
     for i, p in enumerate(pl):
         if isinstance(p, Shard) and p.dim == 1:
             n_rows //= lay.sizes[i]
     for i, p in enumerate(pl):
-        if isinstance(p, Replicate) and n_rows % lay.sizes[i] == 0:
+        if i != keep and isinstance(p, Replicate) \
+                and n_rows % lay.sizes[i] == 0:
             pl[i] = Shard(1)
             n_rows //= lay.sizes[i]
     row_dims = [i for i, p in enumerate(pl)

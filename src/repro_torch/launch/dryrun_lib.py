@@ -20,16 +20,23 @@ from what that device would run:
 dense tensor-core peak, HBM3 bandwidth, memory, NVLink 4 bandwidth in
 each direction); they are datasheet figures, not measurements.
 
-What the port's steps do on a mesh (``core.sharded_step``): parameters
-rest sharded by the rule table, are pruned on their shards and the
-pruned copies all-gathered for compute; the train step's clients sit on
-their mesh axes and each client's rows split over the remaining dims
-that divide them. Prefill and decode split the
-batch the same way (its 'batch' axes, then every other dim that divides
-it) and the decode cache follows the batch; dims that do not divide the
-batch compute it again. There is no tensor parallelism, so the
-reference's activation variants (``{"act": "seq"}`` and ``act_*``
-entries of ``rules_override``) raise.
+What the port's steps do on a mesh. Parameters rest sharded by the rule
+table and are pruned on their shards (``core.sharded_step``). The dense
+family computes on its 'model' shards (``models.tensor_parallel``):
+the train step's clients sit on their mesh axes and each client's rows
+split over the remaining dims but 'model' that divide them; prefill and
+decode split the batch over its 'batch' axes and every other dim but
+'model' that divides it, take no whole copy of a weight (``to_local``;
+a weight also sharded over 'data' under fsdp is gathered over 'data'
+only), and hold the decode cache as the rule table splits it (over kv
+heads, or over head_dim where the head count does not divide). The
+residual stream follows the rules' activation axes: over d_model by
+default, over the sequence under ``{"act": "seq"}``, whole with
+'act_embed' None. The other families compute on whole weights: the
+pruned copies all-gathered, each client's rows also split over 'model',
+prefill and decode on ``full_tensor()`` weights, the cache following the
+batch; for them the activation variants (``{"act": "seq"}`` and
+``act_*`` entries of ``rules_override``) raise, naming the family.
 
 ``compile_seconds`` is the wall time of the meta run (there is no
 compilation). ``variant`` is a dict of overrides: {"prune": False},
@@ -129,23 +136,41 @@ class Built:
 ACTIVATION_AXES = ("act_seq", "act_embed", "act_ff", "act_expert_ff")
 
 
-def _apply_variant_rules(rules, variant):
-    """{"rules_override": {...}} sets logical -> mesh entries of
-    parameter, batch and cache axes. The reference's {"act": "seq"} and
-    overrides of the activation axes lay out activations, which the port
-    does not shard (no tensor parallelism: its steps compute on local
-    tensors and every ``shard_hint`` returns its input), so they raise
-    instead of writing a record equal to the baseline's."""
+def _apply_variant_rules(rules, variant, arch: ArchConfig):
+    """The reference's perf-pass overrides: {"act": "seq"} moves the
+    residual stream from d_model-sharding to sequence-parallel sharding,
+    and {"rules_override": {...}} sets logical -> mesh entries. The
+    activation layouts are the dense family's tensor-parallel path
+    (``models.tensor_parallel``); the other families compute on whole
+    weights and local activations, so for them they raise instead of
+    writing a record equal to the baseline's."""
     override = variant.get("rules_override") or {}
     act = [k for k in ("act",) if k in variant] + \
         [k for k in override if k in ACTIVATION_AXES]
-    if act:
+    if act and arch.family != "dense":
         raise ValueError(
             f"variant {variant}: activation layouts {act} need tensor "
-            "parallelism, which the port does not have")
+            f"parallelism, which the port has for the dense family, not "
+            f"{arch.name}'s {arch.family!r}")
+    if "act" in variant:
+        if variant["act"] != "seq":
+            raise ValueError(f"variant act={variant['act']!r}: only "
+                             "'seq' is a layout")
+        rules["act_seq"] = ("model",)
+        rules["act_embed"] = None
     for k, v in override.items():
         rules[k] = tuple(v) if isinstance(v, list) else v
     return rules
+
+
+def _tp_scope(arch: ArchConfig, mesh, rules):
+    """The scope the dense family's steps run in (its tensor-parallel
+    context under ``rules``); a null scope for the other families."""
+    import contextlib
+    if arch.family != "dense":
+        return contextlib.nullcontext()
+    from repro_torch.models.common import logical_rule_scope
+    return logical_rule_scope(rules, mesh)
 
 
 def _meta_input(shape, dtype, mesh, pl):
@@ -180,7 +205,7 @@ def build_train(arch: ArchConfig, shape: ShapeConfig, mesh,
     rules = _apply_variant_rules(
         shlib.base_rules(mesh, fsdp=fsdp,
                          client_axes=client_axes(multi_pod, pod_only)),
-        variant)
+        variant, arch)
     n_clients = n_clients or num_clients(mesh, pod_only)
     if shape.global_batch % n_clients:
         raise ValueError(f"{shape.global_batch} rows on {n_clients} clients")
@@ -233,11 +258,13 @@ def build_train(arch: ArchConfig, shape: ShapeConfig, mesh,
         c_bytes += SEED_BYTES * (scan_rounds - 1)
 
         def fn():
-            return scanned(params, (), (), batches, controls,
-                           list(range(scan_rounds)))
+            with _tp_scope(arch, mesh, rules):
+                return scanned(params, (), (), batches, controls,
+                               list(range(scan_rounds)))
     else:
         def fn():
-            return step(params, (), (), batch, controls, 0)
+            with _tp_scope(arch, mesh, rules):
+                return step(params, (), (), batch, controls, 0)
     return Built(fn, (), rules, n_clients, p_bytes + b_bytes + c_bytes,
                  alias_bytes=p_bytes)
 
@@ -255,18 +282,23 @@ def _stack_rounds(x, rounds: int):
                               stride=(0,) + tuple(x.stride()))
 
 
-def _serve_layout(mesh, rules, batch_size: int):
+def _serve_layout(mesh, rules, batch_size: int, keep_model: bool = False):
     """Placements of a (B, ...) inference input: B on the 'batch' axes,
-    then on every other mesh dim that divides what is left."""
+    then on every other mesh dim that divides what is left ('model'
+    excepted with ``keep_model``: tensor parallelism needs every row
+    there)."""
     from torch.distributed.tensor import Replicate, Shard
     spec = shlib.make_pspec((batch_size,), ("batch",), rules, mesh)
     pl = list(shlib.placements(spec, mesh))
+    names = list(mesh_axes(mesh))
     sizes = list(mesh_axes(mesh).values())
     rows = batch_size
     for i, p in enumerate(pl):
         if isinstance(p, Shard):
             rows //= sizes[i]
     for i, p in enumerate(pl):
+        if keep_model and names[i] == "model":
+            continue
         if isinstance(p, Replicate) and rows % sizes[i] == 0:
             pl[i] = Shard(0)
             rows //= sizes[i]
@@ -286,7 +318,8 @@ def _dtensor_bytes(tree) -> int:
 def _inference_params(arch, mesh, variant):
     model = build_model(arch, remat=False)
     fsdp = variant.get("fsdp", shlib.policy_for(arch)["fsdp"])
-    rules = _apply_variant_rules(shlib.base_rules(mesh, fsdp=fsdp), variant)
+    rules = _apply_variant_rules(shlib.base_rules(mesh, fsdp=fsdp), variant,
+                                 arch)
     if variant.get("cache_rules"):
         rules.update(variant["cache_rules"])
     params_abs = model.abstract_params()
@@ -295,19 +328,33 @@ def _inference_params(arch, mesh, variant):
     return model, rules, params
 
 
+def _compute_params(arch, mesh, params):
+    """The weights one rank computes with: the dense family's 'model'
+    shards (gathered over any other dim that shards them), or every
+    weight whole for the other families."""
+    if arch.family != "dense":
+        return {k: p.full_tensor() for k, p in params.items()}
+    out = {}
+    for k, p in params.items():
+        pl = shlib.model_placements(p.placements, mesh)
+        out[k] = (p if tuple(p.placements) == pl
+                  else p.redistribute(mesh, pl)).to_local()
+    return out
+
+
 def build_prefill(arch: ArchConfig, shape: ShapeConfig, mesh,
                   variant: Dict[str, Any]) -> Built:
     model, rules, params = _inference_params(arch, mesh, variant)
-    pl = _serve_layout(mesh, rules, shape.global_batch)
+    pl = _serve_layout(mesh, rules, shape.global_batch,
+                       keep_model=arch.family == "dense")
     bs = prefill_batch_struct(arch, shape.global_batch, shape.seq_len)
     batch = {k: _meta_input(v.shape, v.dtype, mesh, pl)
              for k, v in bs.items()}
 
     def fn():
-        with torch.inference_mode():
-            full = {k: p.full_tensor() for k, p in params.items()}
-            return model.prefill(full, {k: b.to_local()
-                                        for k, b in batch.items()})
+        with torch.inference_mode(), _tp_scope(arch, mesh, rules):
+            return model.prefill(_compute_params(arch, mesh, params),
+                                 {k: b.to_local() for k, b in batch.items()})
 
     return Built(fn, (), rules, 0,
                  _dtensor_bytes(params) + _dtensor_bytes(batch))
@@ -317,19 +364,25 @@ def build_decode(arch: ArchConfig, shape: ShapeConfig, mesh,
                  variant: Dict[str, Any]) -> Built:
     model, rules, params = _inference_params(arch, mesh, variant)
     B = shape.global_batch
-    pl = _serve_layout(mesh, rules, B)
+    dense = arch.family == "dense"
+    pl = _serve_layout(mesh, rules, B, keep_model=dense)
     cache_abs = model.abstract_cache(B, shape.seq_len)
     axes = model.cache_axes()
-    cache = {k: _meta_input(v.shape, v.dtype, mesh,
-                            _on_batch_dim(pl, axes[k].index("batch")))
-             for k, v in cache_abs.items()}
+    csh = shlib.cache_shardings(mesh, rules, model, cache_abs)
+    md = list(mesh_axes(mesh)).index("model")
+    cache = {}
+    for k, v in cache_abs.items():
+        cpl = list(_on_batch_dim(pl, axes[k].index("batch")))
+        if dense:             # the rule table's split over 'model'
+            cpl[md] = csh[k].placements[md]
+        cache[k] = _meta_input(v.shape, v.dtype, mesh, tuple(cpl))
     tok = _meta_input((B,), torch.int32, mesh, pl)
     pos = _meta_input((B,), torch.int32, mesh, pl)
 
     def fn():
-        with torch.inference_mode():
-            full = {k: p.full_tensor() for k, p in params.items()}
-            return model.decode_step(full, tok.to_local(), pos.to_local(),
+        with torch.inference_mode(), _tp_scope(arch, mesh, rules):
+            return model.decode_step(_compute_params(arch, mesh, params),
+                                     tok.to_local(), pos.to_local(),
                                      {k: c.to_local()
                                       for k, c in cache.items()})
 

@@ -30,7 +30,13 @@ allocated: the counts are those of rank 0's program.
   tensor on it is freed.
 * collectives (``_c10d_functional``): kind, count, operand bytes (the
   local input), group size and wire bytes per device under ring
-  algorithms (``_wire_factor``, the reference's verbatim).
+  algorithms (``_wire_factor``, the reference's verbatim). The step's
+  own (DTensor redistributions, range and aggregate all-reduces) and the
+  tensor-parallel model's (``models.tensor_parallel``: the all-reduces,
+  all-gathers and reduce-scatters over 'model' of its forward and
+  backward passes) are counted alike; ``coll_log`` lists each one
+  (kind, output shape and dtype, group size, operand bytes) and the
+  summary has a count per kind.
 """
 from __future__ import annotations
 
@@ -139,7 +145,9 @@ class OpCounter(TorchDispatchMode):
         self.live = self.peak = int(base)
         self.coll = defaultdict(float)
         self.coll_count = 0
+        self.coll_kinds: Dict[str, int] = defaultdict(int)
         self.coll_wire = 0.0
+        self.coll_log: list = []
         self.kernel_reads: Dict[str, int] = defaultdict(int)
         self._known = {_storage_key(t) for t in _tensors(inputs)}
         self._refs: Dict[Any, list] = {}
@@ -214,7 +222,11 @@ class OpCounter(TorchDispatchMode):
             group = _group_size(func, args)
             self.coll[kind] += operand
             self.coll_count += 1
+            self.coll_kinds[kind] += 1
             self.coll_wire += operand * _wire_factor(kind, group)
+            self.coll_log.append({"kind": kind, "shape": tuple(out.shape),
+                                  "dtype": out.dtype, "group": group,
+                                  "bytes": operand})
         if not func.is_view:
             if packet not in _TEMPLATES:
                 self.hbm_bytes += sum(_nbytes(t)
@@ -224,9 +236,10 @@ class OpCounter(TorchDispatchMode):
         return out
 
     def summary(self) -> Dict[str, float]:
-        """The reference's ``analyze_hlo`` keys, plus ``peak_bytes`` and
+        """The reference's ``analyze_hlo`` keys, plus ``peak_bytes``,
         ``kernel_read_bytes`` (the part of ``hbm_bytes`` that the
-        hand-written kernels read)."""
+        hand-written kernels read) and ``count_<kind>`` per collective
+        kind."""
         out = {"flops": float(self.flops),
                "hbm_bytes": float(self.hbm_bytes),
                "peak_bytes": float(self.peak),
@@ -236,6 +249,7 @@ class OpCounter(TorchDispatchMode):
                "kernel_read_bytes": float(sum(self.kernel_reads.values()))}
         for kind in _KINDS:
             out["coll_" + kind] = float(self.coll.get(kind, 0.0))
+            out["count_" + kind] = float(self.coll_kinds.get(kind, 0))
         return out
 
 

@@ -4,7 +4,10 @@ Held against ``repro.launch.sharding``.
 
 The rule table (lines 38-137, 171-197): ``base_rules``, ``make_pspec``,
 ``sharding_tree``, ``param_shardings``, ``replicated``,
-``batch_shardings``, ``cache_shardings`` and ``policy_for``. Every
+``batch_shardings``, ``cache_shardings`` and ``policy_for``; a leaf's
+local ranges from its placements (``local_index``, ``local_slice``) and
+its 'model'-only layout (``model_placements``), which tensor parallelism
+computes with. Every
 parameter, cache and activation dim carries a logical axis name
 (``ParamSpec.axes``, ``cache_axes``, ``shard_hint``); a rule maps it to
 mesh axes, with two safety passes:
@@ -224,14 +227,30 @@ def policy_for(arch: ArchConfig) -> Dict[str, Any]:
 # --------------------------------------------------------------------------- #
 # DTensors from and to local shards
 # --------------------------------------------------------------------------- #
-def local_slice(full: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
-    """This rank's shard of a full tensor (no communication)."""
+def local_index(shape: Tuple[int, ...], mesh, pl, lead: int = 0) -> tuple:
+    """This rank's slices of a tensor of global ``shape`` laid out by
+    placements ``pl`` (its local ranges), the first ``lead`` dims
+    whole."""
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
-    shape, offset = compute_local_shape_and_global_offset(
-        tuple(full.shape), sharding.mesh, sharding.placements)
-    idx = tuple(slice(o, o + n) for o, n in zip(offset, shape))
-    return full[idx]
+    local, offset = compute_local_shape_and_global_offset(
+        tuple(shape), mesh, pl)
+    return (slice(None),) * lead + tuple(
+        slice(o, o + n) for o, n in zip(offset[lead:], local[lead:]))
+
+
+def model_placements(pl, mesh) -> tuple:
+    """Placements ``pl`` with only the 'model' dim's shard kept: the
+    layout a rank computes a leaf with under tensor parallelism."""
+    from torch.distributed.tensor import Replicate
+    names = list(mesh_axes(mesh))
+    return tuple(q if names[i] == "model" else Replicate()
+                 for i, q in enumerate(pl))
+
+
+def local_slice(full: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """This rank's shard of a full tensor (no communication)."""
+    return full[local_index(full.shape, sharding.mesh, sharding.placements)]
 
 
 def distribute(full: torch.Tensor, sharding: NamedSharding):

@@ -282,18 +282,24 @@ class logical_rule_scope:
     """Context manager that activates the activation-sharding hints:
     ``with logical_rule_scope(rules, mesh): ...``. ``rules`` maps a
     logical axis name to mesh axes (str / tuple / None); ``mesh`` is a
-    ``DeviceMesh`` with dim names."""
+    ``DeviceMesh`` with dim names. A mesh with a 'model' dim also enters
+    its tensor-parallel context (``models.tensor_parallel``), sequence-
+    parallel when ``rules`` put 'act_seq' on 'model'."""
 
     def __init__(self, rules, mesh):
         self.rules, self.mesh = rules, mesh
 
     def __enter__(self):
+        from repro_torch.models import tensor_parallel as tp
         self._saved = dict(_LOGICAL_RULES)
         _LOGICAL_RULES["rules"] = self.rules
         _LOGICAL_RULES["mesh"] = self.mesh
+        self._tp = tp.scope(tp.context_for(self.mesh, self.rules))
+        self._tp.__enter__()
         return self
 
     def __exit__(self, *exc):
+        self._tp.__exit__(*exc)
         _LOGICAL_RULES.update(self._saved)
         return False
 

@@ -30,6 +30,16 @@ family).
 ``attention_decode`` writes the new token's k/v into the cache it is
 given, in place, and returns that same cache (the reference returns an
 updated copy); with a sliding window the cache is a ring buffer.
+
+Under a tensor-parallel context (``models.tensor_parallel``; the dense
+family's ``DecoderLM`` opens it) the embedding is vocab-parallel, wq /
+wk / wv (and their biases), wi, wi_gate and wi_up are column-parallel,
+both ``wo`` are row-parallel and ``lm_head`` is column-parallel over the
+vocabulary: each function computes on the rank's shards, which it reads
+from the weights' local shapes. A projection whose fused dim cuts a head
+is gathered; the decode cache is split as the rule table says, over kv
+heads, over ``head_dim`` (scores are then partial dot products, summed
+over 'model' before the softmax) or not at all.
 """
 from __future__ import annotations
 
@@ -40,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.common import (
     ParamSpec,
     activation,
@@ -74,12 +85,19 @@ def embedding_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
 
 def embed_tokens(cfg: ArchConfig, p: Tree, tokens: torch.Tensor
                  ) -> torch.Tensor:
-    x = F.embedding(tokens, p["tok"])
+    if tp.active() is not None:
+        x = tp.embed(p["tok"], tokens, cfg.vocab_size)
+    else:
+        x = F.embedding(tokens, p["tok"])
     return shard_hint(x, ("batch", "act_seq", "act_embed"))
 
 
 def lm_head(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
+    """Logits; under tensor parallelism the rank's slice of the vocabulary
+    when the head is vocab-parallel."""
     w = p["tok"].t() if cfg.tie_embeddings else p["head"]
+    if tp.active() is not None:
+        return tp.column(_entered(x), w, None, cfg.vocab_size)[0]
     return x @ w
 
 
@@ -112,6 +130,27 @@ def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return (q.reshape(B, S, h, hd), k.reshape(B, Skv, kv, hd),
             v.reshape(B, Skv, kv, hd))
+
+
+def _entered(x) -> "tp.Enter":
+    """A layer's input under tensor parallelism: the ``tp.Enter`` a
+    ``DecoderLM`` block hands it, or a tensor taken as it is."""
+    return x if isinstance(x, tp.Enter) else tp.Enter(x)
+
+
+def _project_qkv_tp(cfg: ArchConfig, p: Tree, xe: "tp.Enter"):
+    """q, k, v from the rank's column shards (or whole weights), each as
+    (fused features, whether they are the rank's slice)."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    bias = cfg.qkv_bias
+    return (tp.column(xe, p["wq"], p["bq"] if bias else None, h * hd),
+            tp.column(xe, p["wk"], p["bk"] if bias else None, kv * hd),
+            tp.column(xe, p["wv"], p["bv"] if bias else None, kv * hd))
+
+
+def _heads(t: torch.Tensor, hd: int) -> torch.Tensor:
+    """(..., n * hd) fused features as (..., n, hd)."""
+    return t.reshape(tuple(t.shape[:-1]) + (t.shape[-1] // hd, hd))
 
 
 def _attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -189,6 +228,12 @@ def attention_train(cfg: ArchConfig, p: Tree, x: torch.Tensor, *,
                     q_offset: int = 0) -> torch.Tensor:
     """Full-sequence attention for training and prefill: self-attention,
     or cross-attention to ``kv_x`` (B, Skv, D)."""
+    if tp.active() is not None:
+        if kv_x is not None:
+            raise NotImplementedError("cross-attention has no tensor-"
+                                      "parallel path")
+        return _attention_tp(cfg, p, _entered(x), causal=causal,
+                             rope=rope, q_offset=q_offset)
     q, k, v = _project_qkv(cfg, p, x, x if kv_x is None else kv_x)
     if rope and cfg.pos_emb == "rope":
         cos, sin = rope_tables(q.shape[1], cfg.head_dim, cfg.rope_theta,
@@ -204,14 +249,71 @@ def attention_train(cfg: ArchConfig, p: Tree, x: torch.Tensor, *,
     return shard_hint(out @ p["wo"], ("batch", "act_seq", "act_embed"))
 
 
+def _attention_tp(cfg: ArchConfig, p: Tree, x: "tp.Enter", *,
+                  causal: bool, rope: bool, q_offset: int) -> torch.Tensor:
+    """Self-attention on the rank's shards. When the rank's q columns are
+    whole heads it attends them against their kv heads (the rank's own,
+    or those cut out of the gathered kv projections); otherwise it
+    gathers q, k and v, attends every head and hands ``wo`` the rank's
+    slice."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    (q, qs), (k, ks), (v, vs) = _project_qkv_tp(cfg, p, x)
+    heads = tp.head_range(h, kv) if qs and ks and vs else None
+    if heads is not None:
+        lo, hi = heads
+        if kv % tp.active().size:
+            k = tp.gather_sum(k, -1)[..., lo * hd:hi * hd]
+            v = tp.gather_sum(v, -1)[..., lo * hd:hi * hd]
+    else:
+        q, k, v = (tp.gather(t, -1) if s else t
+                   for t, s in ((q, qs), (k, ks), (v, vs)))
+    q, k, v = _heads(q, hd), _heads(k, hd), _heads(v, hd)
+    if rope and cfg.pos_emb == "rope":
+        cos, sin = rope_tables(q.shape[1], hd, cfg.rope_theta,
+                               offset=q_offset, device=q.device)
+        q = apply_rope(q, cos, sin)
+        cos, sin = rope_tables(k.shape[1], hd, cfg.rope_theta,
+                               device=q.device)
+        k = apply_rope(k, cos, sin)
+    out = attend(cfg, q, k, v, causal=causal, q_offset=q_offset)
+    out = out.reshape(q.shape[0], q.shape[1], q.shape[2] * hd)
+    return shard_hint(tp.row(out, p["wo"], h * hd, heads is not None),
+                      ("batch", "act_seq", "act_embed"))
+
+
 def attention_prefill_kv(cfg: ArchConfig, p: Tree, x: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The roped (k, v) pair for cache construction during prefill."""
+    """The roped (k, v) pair for cache construction during prefill; under
+    tensor parallelism the rank's part of it as the rule table splits the
+    cache."""
+    if tp.active() is not None:
+        return _prefill_kv_tp(cfg, p, _entered(x))
     _, k, v = _project_qkv(cfg, p, x, x)
     if cfg.pos_emb == "rope":
         cos, sin = rope_tables(k.shape[1], cfg.head_dim, cfg.rope_theta,
                                device=x.device)
         k = apply_rope(k, cos, sin)
+    return k, v
+
+
+def _prefill_kv_tp(cfg: ArchConfig, p: Tree, x: "tp.Enter"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    _, (k, ks), (v, vs) = _project_qkv_tp(cfg, p, x)
+    where = tp.cache_split(kv, hd)
+    own_heads = where == "kv_heads" and ks and vs
+    if not own_heads:
+        k = tp.gather(k, -1) if ks else k
+        v = tp.gather(v, -1) if vs else v
+    k, v = _heads(k, hd), _heads(v, hd)
+    if cfg.pos_emb == "rope":
+        cos, sin = rope_tables(k.shape[1], hd, cfg.rope_theta,
+                               device=k.device)
+        k = apply_rope(k, cos, sin)
+    if where == "head_dim":
+        return tp.split(k, -1), tp.split(v, -1)
+    if where == "kv_heads" and not own_heads:
+        return tp.split(k, -2), tp.split(v, -2)
     return k, v
 
 
@@ -239,6 +341,9 @@ def attention_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     window the cache is a ring buffer of length window: the slot is
     pos % S_cache and the first min(pos + 1, S_cache) slots are valid.
     Returns (y (B, D), cache_k, cache_v)."""
+    if tp.active() is not None:
+        return _attention_decode_tp(cfg, p, _entered(x), cache_k, cache_v,
+                                    pos)
     B = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cache_len = cache_k.shape[1]
@@ -265,17 +370,71 @@ def attention_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
                     ("batch", "kv_heads", None, "head_dim"))
     kk = shard_hint(cache_k.to(q.dtype), cache_axes)        # (B, S, KV, hd)
     vv = shard_hint(cache_v.to(q.dtype), cache_axes)
+    out = _decode_attend(cfg, qg, kk, vv, pos).reshape(B, h * hd)
+    return out @ p["wo"], cache_k, cache_v
+
+
+def _decode_attend(cfg: ArchConfig, qg: torch.Tensor, kk: torch.Tensor,
+                   vv: torch.Tensor, pos: torch.Tensor,
+                   partial: bool = False) -> torch.Tensor:
+    """One query a row against the cache: qg (B, KV, G, d), kk / vv (B,
+    S, KV, d) -> (B, KV, G, d). ``partial``: d is the rank's slice of
+    head_dim, and the scores are summed over 'model' before the
+    softmax."""
+    cache_len = kk.shape[1]
     scores = torch.einsum("bkgd,bskd->bkgs", qg, kk).to(torch.float32)
-    scores = scores * (hd ** -0.5)
-    kpos = torch.arange(cache_len, device=x.device)[None, :]
+    if partial:
+        scores = tp.reduce_out(scores)
+    scores = scores * (cfg.head_dim ** -0.5)
+    kpos = torch.arange(cache_len, device=qg.device)[None, :]
     if cfg.sliding_window:
         valid = kpos < torch.clamp(pos + 1, max=cache_len)[:, None]
     else:
         valid = kpos <= pos[:, None]
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgs,bskd->bkgd", probs, vv).reshape(B, h * hd)
-    return out @ p["wo"], cache_k, cache_v
+    probs = torch.softmax(scores, dim=-1).to(qg.dtype)
+    return torch.einsum("bkgs,bskd->bkgd", probs, vv)
+
+
+def _attention_decode_tp(cfg: ArchConfig, p: Tree, x: "tp.Enter",
+                         cache_k: torch.Tensor, cache_v: torch.Tensor,
+                         pos: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``attention_decode`` on the rank's shards and its part of the cache:
+    over kv heads, the rank's q and kv heads attend as a whole model's
+    would; over head_dim, q, k and v are gathered and roped whole, the
+    rank keeps its head_dim slice, the partial scores are summed over
+    'model', and the rank's slices of every head's output are gathered
+    for ``wo``; a whole cache attends whole."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    (q, qs), (k, ks), (v, vs) = _project_qkv_tp(cfg, p, x)
+    B = q.shape[0]
+    where = tp.cache_split(kv, hd)
+    own_heads = where == "kv_heads" and qs and ks and vs
+    if where == "kv_heads" and not own_heads:
+        raise NotImplementedError(
+            f"{cfg.name}: a cache split over kv heads needs wq, wk and wv "
+            "split over 'model' too")
+    if not own_heads:
+        q, k, v = (tp.gather(t, -1) if s else t
+                   for t, s in ((q, qs), (k, ks), (v, vs)))
+    q, k, v = _heads(q, hd), _heads(k, hd), _heads(v, hd)
+    if cfg.pos_emb == "rope":
+        q = apply_rope_at(q, pos, hd, cfg.rope_theta)
+        k = apply_rope_at(k, pos, hd, cfg.rope_theta)
+    if where == "head_dim":
+        q, k, v = tp.split(q, -1), tp.split(k, -1), tp.split(v, -1)
+    slot = pos % cache_k.shape[1] if cfg.sliding_window else pos
+    write_cache(cache_k, slot, k)
+    write_cache(cache_v, slot, v)
+    n_kv = k.shape[1]
+    qg = q.reshape(B, n_kv, q.shape[1] // n_kv, q.shape[2])
+    out = _decode_attend(cfg, qg, cache_k.to(q.dtype), cache_v.to(q.dtype),
+                         pos, partial=where == "head_dim")
+    if where == "head_dim":
+        out = tp.gather(out, -1)
+    out = out.reshape(B, -1)
+    return tp.row(out, p["wo"], h * hd, own_heads), cache_k, cache_v
 
 
 # --------------------------------------------------------------------------- #
@@ -298,9 +457,30 @@ def mlp_specs(cfg: ArchConfig, d_ff: Optional[int] = None
 
 def mlp_apply(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
     act = activation(cfg.mlp_act)
+    if tp.active() is not None:
+        return _mlp_tp(cfg, p, _entered(x), act)
     if cfg.glu:
         h = act(x @ p["wi_gate"]) * (x @ p["wi_up"])
     else:
         h = act(x @ p["wi"])
     h = shard_hint(h, ("batch", "seq", "act_ff")) if h.dim() == 3 else h
     return h @ p["wo"]
+
+
+def _mlp_tp(cfg: ArchConfig, p: Tree, xe: "tp.Enter", act) -> torch.Tensor:
+    """The MLP on the rank's d_ff slice (wi / wi_gate / wi_up column-
+    parallel, wo row-parallel), in the residual stream's layout; with
+    'act_ff' off 'model' the hidden activation is made whole first."""
+    f = cfg.d_ff
+    if cfg.glu:
+        g, gs = tp.column(xe, p["wi_gate"], None, f)
+        u, us = tp.column(xe, p["wi_up"], None, f)
+        if gs != us:
+            raise NotImplementedError("wi_gate and wi_up laid out apart")
+        h = act(g) * u
+    else:
+        h, gs = tp.column(xe, p["wi"], None, f)
+        h = act(h)
+    if gs and not tp.hinted("act_ff"):
+        h, gs = tp.gather(h, -1), False
+    return tp.row(h, p["wo"], f, gs)

@@ -24,9 +24,19 @@ S, KV, hd), or ``ckv`` (L, B, S, kv_lora + rope) for MLA; a sliding
 window caps S (a ring buffer). ``decode_step`` writes into the cache it
 is given and returns that same dict: a caller must not reuse a cache it
 has passed in as the state before the step.
+
+Tensor parallelism (``models.tensor_parallel``) covers the dense family
+only: under a context with a 'model' dim of more than one rank its
+``forward``, ``loss``, ``prefill`` and ``decode_step`` compute on the
+rank's weight shards (the logits are the rank's slice of the vocabulary,
+the loss the vocab-parallel cross-entropy, the cache the rank's part as
+the rule table splits it). The MoE and VLM families have no such path:
+under a context they raise, and the sharded step gives them whole
+weights (``core.sharded_step``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -34,6 +44,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.common import (
     ParamSpec,
     abstract_params,
@@ -117,6 +128,32 @@ class DecoderLM:
     def abstract_params(self) -> Tree:
         return abstract_params(self.param_specs())
 
+    def _tp(self, seq_len: Optional[int]):
+        """The tensor-parallel region over a residual stream of ``seq_len``
+        tokens (None: one a row, decode): the dense family computes on
+        weight shards under a context; the other families have no such
+        path."""
+        if self.cfg.family == "dense":
+            return tp.region(seq_len, self.cfg.d_model)
+        if tp.current() is not None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: tensor parallelism covers the dense "
+                f"family, not {self.cfg.family!r}")
+        return contextlib.nullcontext()
+
+    def _norm(self, x: torch.Tensor, p: Tree, prefix: str):
+        """A block's input: ``norm(x)``, or under tensor parallelism the
+        residual stream with its norm (``tensor_parallel.Enter``), which
+        the layers take in its place."""
+        if tp.active() is None:
+            return apply_norm(self.cfg, x, p, prefix)
+        keys = [k for k in p if k.startswith(prefix)]
+
+        def norm(t, wrap):
+            return apply_norm(self.cfg, t, {k: wrap(p[k]) for k in keys},
+                              prefix)
+        return tp.Enter(x, norm)
+
     def _layers(self, params: Tree):
         """Every layer's params in order: the prefix (dense) layers, then
         views of the stacked ones."""
@@ -139,12 +176,12 @@ class DecoderLM:
     def _train_block(self, lp: Tree, x: torch.Tensor
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         cfg = self.cfg
-        h = apply_norm(cfg, x, lp, "ln1.")
+        h = self._norm(x, lp, "ln1.")
         if cfg.mla is not None:
             x = x + mla_mod.mla_train(cfg, subtree(lp, "attn."), h)
         else:
             x = x + attention_train(cfg, subtree(lp, "attn."), h)
-        h2 = apply_norm(cfg, x, lp, "ln2.")
+        h2 = self._norm(x, lp, "ln2.")
         ffn = subtree(lp, "ffn.")
         if "router" in ffn:                # MoE layer (prefix layers are dense)
             f, aux = moe_mod.moe_apply(cfg, ffn, h2)
@@ -159,32 +196,39 @@ class DecoderLM:
         return (x,) if aux is None else (x, aux)
 
     def _head(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
-        x = apply_norm(self.cfg, x, params, "final_norm.")
+        x = self._norm(x, params, "final_norm.")
         return lm_head(self.cfg, subtree(params, "embed."), x)
 
     def forward(self, params: Tree, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (logits (B, S_total, V), aux_loss scalar float32)."""
-        x = self._embed_inputs(params, batch)
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i, lp in enumerate(self._layers(params)):
-            if self.remat and i >= self.n_prefix:     # the scanned layers
-                x, *rest = remat(self._remat_block, lp, x)
-                aux = rest[0] if rest else None
-            else:
-                x, aux = self._train_block(lp, x)
-            if aux is not None:
-                aux_total = aux_total + aux
-        return self._head(params, x), aux_total
+        with self._tp(batch["tokens"].shape[-1]):
+            x = self._embed_inputs(params, batch)
+            aux_total = torch.zeros((), dtype=torch.float32,
+                                    device=x.device)
+            block = tp.bind(self._remat_block)
+            for i, lp in enumerate(self._layers(params)):
+                if self.remat and i >= self.n_prefix:   # the scanned layers
+                    x, *rest = remat(block, lp, x)
+                    aux = rest[0] if rest else None
+                else:
+                    x, aux = self._train_block(lp, x)
+                if aux is not None:
+                    aux_total = aux_total + aux
+            return self._head(params, x), aux_total
 
     def loss(self, params: Tree, batch: Dict[str, torch.Tensor]
              ) -> torch.Tensor:
-        logits, aux = self.forward(params, batch)
-        if self.cfg.family == "vlm":
-            logits = logits[:, self.cfg.num_image_tokens:, :]
-        # next-token prediction
-        return cross_entropy_loss(logits[:, :-1, :],
-                                  batch["labels"][:, 1:]) + aux
+        with self._tp(batch["tokens"].shape[-1]):
+            logits, aux = self.forward(params, batch)
+            if self.cfg.family == "vlm":
+                logits = logits[:, self.cfg.num_image_tokens:, :]
+            # next-token prediction
+            if logits.shape[-1] != self.cfg.vocab_size:   # vocab-parallel
+                return tp.cross_entropy(logits[:, :-1, :],
+                                        batch["labels"][:, 1:]) + aux
+            return cross_entropy_loss(logits[:, :-1, :],
+                                      batch["labels"][:, 1:]) + aux
 
     # ------------------------------------------------------------------ #
     # decode
@@ -222,7 +266,7 @@ class DecoderLM:
     def _decode_block(self, lp: Tree, x: torch.Tensor, cache_l: Tree,
                       pos: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        h = apply_norm(cfg, x, lp, "ln1.")
+        h = self._norm(x, lp, "ln1.")
         if cfg.mla is not None:
             a, _ = mla_mod.mla_decode(cfg, subtree(lp, "attn."), h,
                                       cache_l["ckv"], pos)
@@ -230,7 +274,7 @@ class DecoderLM:
             a, _, _ = attention_decode(cfg, subtree(lp, "attn."), h,
                                        cache_l["k"], cache_l["v"], pos)
         x = x + a
-        h2 = apply_norm(cfg, x, lp, "ln2.")
+        h2 = self._norm(x, lp, "ln2.")
         ffn = subtree(lp, "ffn.")
         if "router" in ffn:
             return x + moe_mod.moe_apply_token(cfg, ffn, h2)
@@ -243,19 +287,22 @@ class DecoderLM:
 
         Writes this token's k/v (or latent) into ``cache`` in place and
         returns (logits (B, V), cache), the same dict."""
-        x = subtree(params, "embed.")["tok"][token]            # (B, D)
-        x = shard_hint(x, ("batch", "act_embed"))
-        for i, lp in enumerate(self._layers(params)):
-            x = self._decode_block(lp, x, {k: c[i] for k, c in cache.items()},
-                                   pos)
-        return self._head(params, x), cache
+        with self._tp(None):
+            tok = subtree(params, "embed.")["tok"]
+            x = (tp.embed(tok, token, self.cfg.vocab_size)
+                 if tp.active() is not None else tok[token])   # (B, D)
+            x = shard_hint(x, ("batch", "act_embed"))
+            for i, lp in enumerate(self._layers(params)):
+                x = self._decode_block(
+                    lp, x, {k: c[i] for k, c in cache.items()}, pos)
+            return self._head(params, x), cache
 
     # ------------------------------------------------------------------ #
     # prefill (forward + cache construction)
     # ------------------------------------------------------------------ #
     def _cache_entry(self, lp: Tree, x: torch.Tensor) -> Tree:
         cfg = self.cfg
-        h = apply_norm(cfg, x, lp, "ln1.")
+        h = self._norm(x, lp, "ln1.")
         if cfg.mla is not None:
             return {"ckv": mla_mod.mla_prefill_cache(
                 cfg, subtree(lp, "attn."), h).to(CACHE_DTYPE)}
@@ -266,14 +313,15 @@ class DecoderLM:
                 ) -> Tuple[torch.Tensor, Tree]:
         """Full-sequence forward that also returns the KV cache:
         (logits (B, S_total, V), cache with S = S_total)."""
-        x = self._embed_inputs(params, batch)
-        cache: Optional[Tree] = None
-        for i, lp in enumerate(self._layers(params)):
-            entry = self._cache_entry(lp, x)
-            if cache is None:
-                cache = {k: e.new_empty((self.cfg.n_layers,) + e.shape)
-                         for k, e in entry.items()}
-            for k, e in entry.items():
-                cache[k][i] = e
-            x, _ = self._train_block(lp, x)
-        return self._head(params, x), cache
+        with self._tp(batch["tokens"].shape[-1]):
+            x = self._embed_inputs(params, batch)
+            cache: Optional[Tree] = None
+            for i, lp in enumerate(self._layers(params)):
+                entry = self._cache_entry(lp, x)
+                if cache is None:
+                    cache = {k: e.new_empty((self.cfg.n_layers,) + e.shape)
+                             for k, e in entry.items()}
+                for k, e in entry.items():
+                    cache[k][i] = e
+                x, _ = self._train_block(lp, x)
+            return self._head(params, x), cache

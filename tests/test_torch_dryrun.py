@@ -12,6 +12,13 @@ fail on its installed jax complete here (granite-8b x decode_32k,
 whisper-medium x prefill_32k, and train_4k as a scanned segment of 2
 rounds with about twice the single round's FLOPs), and its documented
 skip prints SKIP and exits 0. No jax is imported.
+
+The dense family computes on its 'model' shards (tensor parallelism):
+its activation variants ({"act": "seq"}, 'act_*' overrides) lay out the
+residual stream and give records of their own, and granite-8b x
+train_4k under {"act": "seq"} peaks below the whole-weight step's record
+for the same pair (391,199,604,656 bytes a device, the port's dry run
+before tensor parallelism). The other families still raise for them.
 """
 import json
 import os
@@ -30,6 +37,13 @@ PAIRS = {
     "prefill": ("whisper-medium", "prefill_32k", "{}"),
     "skip": ("qwen1.5-32b", "long_500k", "{}"),
 }
+# the activation variants (the reference's perf-pass overrides)
+VARIANTS = [{"act": "seq"}, {"rules_override": {"act_embed": None}},
+            {"rules_override": {"act_seq": ["model"], "d_ff": None}}]
+for _i, _v in enumerate(VARIANTS):
+    PAIRS[f"act{_i}"] = ("granite-8b", "train_4k", json.dumps(_v))
+# granite-8b x train_4k on (2, 4), the port's step on whole weights
+WHOLE_WEIGHT_PEAK = 391199604656
 
 
 @pytest.fixture(scope="module")
@@ -99,9 +113,10 @@ def test_documented_skip(runs):
 @pytest.mark.parametrize("block", [64, 128])
 def test_pruning_kernels_run_on_shards(block):
     # reduced granite-8b on the (2, 4) test mesh: block_norms reads each
-    # tileable leaf's 'model' shard where the shards hold whole tiles
-    # (all of them at block 64; at 128 the 256-wide leaves split into
-    # 64-wide shards, which are gathered and read whole)
+    # tileable leaf's 'model' shard, at whole tiles where the shards hold
+    # them (all of them at block 64) and at sub-tiles as wide as a shard
+    # where they cut tiles (at 128 the 256-wide leaves split into 64-wide
+    # shards); no leaf is read whole
     import math
 
     import torch.distributed as dist
@@ -130,9 +145,7 @@ def test_pruning_kernels_run_on_shards(block):
             if not tileable(v, block):
                 continue
             local = psh[k].local_shape(tuple(v.shape))
-            cut = any(local[d] % block for d in (-2, -1))
-            n = v.numel() if cut else math.prod(local)
-            want += n * v.element_size()
+            want += math.prod(local) * v.element_size()
             whole += v.numel() * v.element_size()
         assert counter.kernel_reads["block_norms"] == want
         assert want < whole
@@ -142,26 +155,57 @@ def test_pruning_kernels_run_on_shards(block):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("variant", [
-    {"act": "seq"}, {"rules_override": {"act_embed": None}},
-    {"rules_override": {"act_seq": ["model"], "d_ff": None}}])
-def test_activation_variants_raise(variant):
-    # the port lays out no activation (no tensor parallelism): these
-    # variants would write records equal to the baseline's
+OTHER_FAMILIES = {"moe": "olmoe-1b-7b", "mla": "deepseek-v2-lite-16b",
+                  "vlm": "phi-3-vision-4.2b", "ssm": "rwkv6-7b",
+                  "hybrid": "zamba2-2.7b", "encdec": "whisper-medium"}
+
+
+@pytest.mark.parametrize("family", list(OTHER_FAMILIES))
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_activation_variants_raise(variant, family):
+    # the families without tensor parallelism lay out no activation:
+    # these variants would write records equal to the baseline's
+    from repro_torch import configs
     from repro_torch.launch import dryrun_lib
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.mesh import AbstractMesh
     mesh = AbstractMesh((("data", 2), ("model", 4)))
-    with pytest.raises(ValueError, match="tensor parallelism"):
-        dryrun_lib._apply_variant_rules(sh.base_rules(mesh), variant)
+    arch = configs.get_arch(OTHER_FAMILIES[family])
+    with pytest.raises(ValueError, match="tensor parallelism.*"
+                       + arch.family):
+        dryrun_lib._apply_variant_rules(sh.base_rules(mesh), variant, arch)
+
+
+@pytest.mark.parametrize("i", range(len(VARIANTS)))
+def test_activation_variants_lay_out_the_dense_family(runs, i):
+    from repro_torch import configs
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import AbstractMesh
+    mesh = AbstractMesh((("data", 2), ("model", 4)))
+    arch = configs.get_arch("granite-8b")
+    base = sh.base_rules(mesh)
+    rules = dryrun_lib._apply_variant_rules(dict(base), VARIANTS[i], arch)
+    assert rules != base
+    (rec,) = _ok(runs[f"act{i}"])
+    (one,) = _ok(runs["train"])
+    assert rec["variant"] == VARIANTS[i]
+    keys = ("bytes_per_device", "flops_per_device", "hbm_bytes_per_device",
+            "collective_wire_bytes", "collective_count")
+    assert any(rec[k] != one[k] for k in keys), rec
+    if i == 0:                                   # {"act": "seq"}
+        assert rec["bytes_per_device"] < WHOLE_WEIGHT_PEAK
+        assert rec["bytes_per_device"] < one["bytes_per_device"]
 
 
 def test_parameter_rules_override_applies():
+    from repro_torch import configs
     from repro_torch.launch import dryrun_lib
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.mesh import AbstractMesh
     mesh = AbstractMesh((("data", 2), ("model", 4)))
     rules = dryrun_lib._apply_variant_rules(
         sh.base_rules(mesh), {"rules_override": {"d_ff": None,
-                                                 "embed": ["data"]}})
+                                                 "embed": ["data"]}},
+        configs.get_arch("granite-8b"))
     assert rules["d_ff"] is None and rules["embed"] == ("data",)

@@ -1,5 +1,8 @@
 """The sharded LTFL step (``param_shardings`` / ``gather_shardings``) on
-a real (2, 4) mesh of 8 gloo ranks, against the unsharded step.
+a real (2, 4) mesh of 8 gloo ranks, against the unsharded step, on its
+whole-weight path: the path of every family but the dense one, asked for
+here with ``tensor_parallel=False`` (the dense family's tensor-parallel
+path is held in ``test_torch_tensor_parallel.py``).
 
 Reduced granite-8b (float32, 2 layers, width 256) with its clients on
 'data' and its weights on 'model' by the rule table; each client's 4
@@ -96,7 +99,7 @@ def _rank(rank, port, out_dir):
         results = {}
         for case, (uplink, block) in CASES.items():
             step = _step(model, uplink, block, param_shardings=stacked,
-                         gather_shardings=gather)
+                         gather_shardings=gather, tensor_parallel=False)
             new, _, _, m = step(dparams, (), (), dbatch, controls, SEED)
             results[case] = (
                 {k: v.full_tensor() for k, v in new.items()}, m,

@@ -1,0 +1,135 @@
+"""The rank program of ``test_torch_tensor_parallel.py``: the dense
+family's tensor-parallel step, prefill and decode on one rank of a (2, 4)
+gloo mesh. A module of its own, without jax, so that each spawned rank
+imports only the port."""
+import os
+
+import torch
+
+from repro_torch.configs import get_arch, reduce_for_smoke
+from repro_torch.core.compressors import ltfl_quantizer
+from repro_torch.core.ltfl_step import make_fl_train_step
+from repro_torch.models import build_model, params_from_numpy
+from repro_torch.optim import sgd
+
+C, ROWS, SEQ, BLOCK, LR, SEED, STEPS = 2, 4, 16, 64, 0.05, 11, 4
+CONFIGS = {"granite": ("granite-8b", dict(n_kv_heads=2)),
+           "qwen": ("qwen1.5-32b", dict(n_heads=6, n_kv_heads=6,
+                                        head_dim=32))}
+LAYOUTS = {"d_model": {}, "seq": {"act": "seq"},
+           "whole": {"rules_override": {"act_embed": None}}}
+# (layout, uplink): the quantizer under the baseline layout; every layout
+# unquantized, where no stochastic level can flip
+CASES = [("d_model", "ltfl")] + [(layout, "none") for layout in LAYOUTS]
+CONTROLS = {"rho": [0.25, 0.5], "delta": [3.0, 5.0],
+            "weights": [40.0, 60.0], "drop_prob": [0.0, 0.0]}
+
+
+def port_config(name):
+    arch, replace = CONFIGS[name]
+    return reduce_for_smoke(get_arch(arch)).replace(**replace)
+
+
+def controls():
+    return {k: torch.tensor(v) for k, v in CONTROLS.items()}
+
+
+def source(uniforms):
+    """The injected uniforms (numpy, one (C, *leaf) array a leaf) as a
+    quantizer's uniform source."""
+    def draw(seed, n, shapes):
+        assert seed == SEED and n == C
+        assert [tuple(s) for s in shapes] == [u.shape[1:] for u in uniforms]
+        return [torch.from_numpy(u) for u in uniforms]
+    return draw
+
+
+def port(name, tree, tokens):
+    """(config, model, float32 params, {"tokens", "labels"})."""
+    cfg = port_config(name)
+    model = build_model(cfg)
+    params = {k: v.float() for k, v in params_from_numpy(tree).items()}
+    t = torch.from_numpy(tokens).long()
+    return cfg, model, params, {"tokens": t, "labels": t}
+
+
+def make_step(model, uniforms, uplink="ltfl", **kw):
+    comp = (ltfl_quantizer(uniforms=source(uniforms)) if uplink == "ltfl"
+            else "none")
+    return make_fl_train_step(model, sgd(LR), C, prune_block=BLOCK,
+                              compressor=comp, **kw)
+
+
+def run_rank(rank, port_no, out_dir):
+    """Every case's TP step (full updated weights, loss, range sums), and
+    client 0's prefill (gathered logits and cache) and STEPS decode steps
+    (gathered logits) under the baseline rules, from the inputs that
+    ``out_dir``/inputs.pt holds; rank 0 saves them to ``out_dir``/tp.pt."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.common import logical_rule_scope
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port_no))
+    torch.set_num_threads(1)
+    # a file: numpy arguments pickled to each spawned rank cost seconds
+    data = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
+    dist.init_process_group("gloo", rank=rank, world_size=8)
+    try:
+        mesh = make_test_mesh(device_type="cpu")
+        out = {}
+        for name, (tree, tokens, steps, uniforms) in data.items():
+            cfg, model, params, batch = port(name, tree, tokens)
+            base = sh.base_rules(mesh, client_axes=("data",))
+            psh = sh.param_shardings(mesh, model, base)
+            stacked = sh.stacked_shardings(mesh, model, base, C, "client")
+            gather = sh.stacked_shardings(mesh, model, base, C, None)
+            bsh = sh.batch_shardings(mesh, base, batch, leading="client")
+            dparams = {k: sh.distribute(v, psh[k]) for k, v in params.items()}
+            dbatch = {k: sh.distribute(v, bsh[k]) for k, v in batch.items()}
+            for layout, uplink in CASES:
+                rules = dryrun_lib._apply_variant_rules(
+                    dict(base), LAYOUTS[layout], cfg)
+                step = make_step(model, uniforms, uplink,
+                                 param_shardings=stacked,
+                                 gather_shardings=gather)
+                with logical_rule_scope(rules, mesh):
+                    new, _, _, m = step(dparams, (), (), dbatch, controls(),
+                                        SEED)
+                out[name, layout, uplink] = (
+                    {k: v.full_tensor() for k, v in new.items()},
+                    {k: m[k] for k in ("loss", "range_sq")})
+            local = {k: sh.local_slice(v, psh[k]).contiguous()
+                     for k, v in params.items()}
+            ctx = tp.context_for(mesh, base)
+            cache = model.init_cache(ROWS, SEQ + STEPS)
+            csh = sh.cache_shardings(mesh, base, model, cache)
+            with torch.inference_mode(), logical_rule_scope(base, mesh):
+                logits, pcache = model.prefill(local, {"tokens":
+                                                       batch["tokens"][0]})
+                split = {}
+                for k, v in cache.items():
+                    # every rank holds all ROWS rows: 'model' splits only
+                    spec = tuple(None if e == "data" else e
+                                 for e in csh[k].spec)
+                    split[k] = spec.index("model") - len(spec)
+                    cache[k] = sh.local_slice(
+                        v, sh.NamedSharding(mesh, spec)).clone()
+                    cache[k][:, :, :SEQ] = pcache[k]
+                got = {"prefill": tp.all_gather(logits, ctx, -1),
+                       "cache": {k: tp.all_gather(v, ctx, split[k])
+                                 for k, v in pcache.items()},
+                       "decode": []}
+                pos = torch.full((ROWS,), SEQ)
+                for t in steps:
+                    lg, cache = model.decode_step(
+                        local, torch.from_numpy(t).long(), pos, cache)
+                    got["decode"].append(tp.all_gather(lg, ctx, -1))
+                    pos = pos + 1
+            out[name, "serve"] = got
+        if rank == 0:
+            torch.save(out, os.path.join(out_dir, "tp.pt"))
+    finally:
+        dist.destroy_process_group()
