@@ -321,29 +321,41 @@ Phases; any failure exits non-zero before the result lines:
    (the forward alone) bitwise, the later losses, the first step's
    aggregate norm and the weights after the last step within
    ``REMAT_*_REL`` of each other, both peaks and both step times.
-30. tensor parallelism over 'model' for the dense family
+30. tensor parallelism over 'model' for the dense and MoE families
    (``models.tensor_parallel``): (a) the sharded step on its tensor-
-   parallel path (the dense family's default) on an NCCL world of one and
-   a (1, 1) mesh, phase 9's run, 3 steps with SGD and 3 with the int8
-   wire format: losses and weights bitwise the plain step's, the SGD
-   losses bitwise phase 9's, launches 12 / 9 / 18 and 0 / 9 / 18 a step;
-   (b) meta dry runs of granite-8b x train_4k on (16, 16) and
-   (2, 16, 16) under {"act": "seq"} and of granite-8b x prefill_32k and
-   x decode_32k on (16, 16), started with phase 29's, each printed with
-   phase 29's baseline train records beside the whole-weight step's
-   records of the same pairs (``WHOLE_WEIGHT_RECORDS``). No 'model'
-   axis of more than one rank runs on the one card (NCCL puts no two
-   ranks on a card; gloo's all-gather of CUDA tensors ends the process):
-   tests/test_torch_tensor_parallel.py runs eight on the CPU.
+   parallel path (those families' default) on an NCCL world of one and
+   a (1, 1) mesh, 3 steps with SGD and 3 with the int8 wire format each:
+   phase 9's run (granite-8b), then olmoe-1b-7b (phase 18's cut: 2
+   layers, 1,045,178,368 parameters) and deepseek-v2-lite-16b (published
+   widths, 2 layers: the dense prefix layer and one MoE layer,
+   1,085,287,424 parameters) at the launcher's defaults (``TP_MOE``):
+   losses and weights bitwise the plain step's, the SGD losses bitwise
+   phase 9's (granite) and phase 18's (olmoe), launches a step 12 / 9 /
+   18, olmoe 13 / 10 / 20, deepseek 29 / 22 / 44 (0 B1 under int8),
+   each step's time beside the plain step's and the whole-weight sharded
+   step's (``tensor_parallel=False``, also bitwise); (b) meta dry runs of
+   granite-8b x train_4k on (16, 16) and (2, 16, 16) under {"act":
+   "seq"} and of granite-8b x prefill_32k and x decode_32k on (16, 16);
+   of olmoe-1b-7b x train_4k on (16, 16) and (2, 16, 16); of
+   deepseek-v2-lite-16b x train_4k on (16, 16) under {} and {"act":
+   "seq"}, and x prefill_32k and x decode_32k on (16, 16); started with
+   phase 29's, each printed beside the whole-weight step's record of the
+   same pair (``WHOLE_WEIGHT_RECORDS``), with phase 29's granite
+   baseline train records. No 'model' axis of more than one rank runs on
+   the one card (NCCL puts no two ranks on a card; gloo's all-gather of
+   CUDA tensors ends the process): tests/test_torch_tensor_parallel.py
+   runs eight on the CPU.
 
 ``--profile DIR`` also writes torch.profiler tables of one edge round
 (``DIR/profile_round.txt``), one datacenter step
 (``DIR/profile_step.txt``; phase 18's ``profile_step_<arch>.txt``), one
 decode step of each serving run
 (``DIR/profile_decode_<arch>_<B>x<P>.txt``), one scanned segment of
-phase 22 (``DIR/profile_segment.txt``) and a 2-round device-control
-segment of phase 24 (``DIR/profile_control_segment.txt``), with their
-idle shares.
+phase 22 (``DIR/profile_segment.txt``), a 2-round device-control
+segment of phase 24 (``DIR/profile_control_segment.txt``) and one SGD
+step of phase 30 (a)'s TP and whole-weight paths for each config, by
+host time (``DIR/profile_tp_step_<arch>.txt``,
+``DIR/profile_whole_step_<arch>.txt``), with their idle shares.
 
 The last three lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. The ``stochastic_quant``
@@ -358,7 +370,9 @@ plain version at the bucket's rows (``max_abs_err`` is the larger of
 phase 3's and that check's float32 error), and phase 28's static-bits
 calls (``static_bits_*``). The B1-B3 rows carry phase 28's launches a
 step under the int8 wire format, momentum and AdamW
-(``host_leftover_launches_per_step``). The
+(``host_leftover_launches_per_step``), and phase 30's on the TP step
+(``tensor_parallel_step_launches_per_step`` for granite-8b,
+``moe_tensor_parallel_step_launches_per_step`` by MoE config). The
 ``block_sparse_matmul`` row also carries its main-path launches by path
 (``path``), the paths of phase 11's products (``check_paths``), its rate
 on live work (``kernel_tflops``) and the rho sweep.
@@ -737,10 +751,11 @@ def profile_round(runner, out_dir: Path) -> None:
                  "round")
 
 
-def profile_call(fn, out_file: Path, label: str) -> None:
-    """Run ``fn`` once under torch.profiler; write the device-time table
-    to ``out_file`` and print the wall time, the device busy time and the
-    idle share."""
+def profile_call(fn, out_file: Path, label: str,
+                 sort_by: str = "cuda_time_total") -> None:
+    """Run ``fn`` once under torch.profiler; write its table (by device
+    time, or by ``sort_by``) to ``out_file`` and print the wall time, the
+    device busy time and the idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     out_file.parent.mkdir(parents=True, exist_ok=True)
@@ -764,8 +779,7 @@ def profile_call(fn, out_file: Path, label: str) -> None:
         elif e > end:
             busy_us += e - end
             end = e
-    table = prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=40)
+    table = prof.key_averages().table(sort_by=sort_by, row_limit=40)
     out_file.write_text(table)
     if spans:
         log(f"[profile] {label} wall {wall!r} s (profiler on), "
@@ -774,7 +788,7 @@ def profile_call(fn, out_file: Path, label: str) -> None:
     else:
         log(f"[profile] {label}: no device events recorded: idle share "
             "not measured")
-    log(f"[profile] top of the {label}'s device-time table:")
+    log(f"[profile] top of the {label}'s table by {sort_by}:")
     for line in table.splitlines()[:16]:
         log(f"[profile] {line}")
 
@@ -1773,8 +1787,8 @@ def _routed(fn):
     seen = []
     inner = moe_mod._route
 
-    def recorded(p, x, k):
-        out = inner(p, x, k)
+    def recorded(p, x, k, n_experts):
+        out = inner(p, x, k, n_experts)
         seen.append(out[2])
         return out
 
@@ -4097,34 +4111,62 @@ def phase_launch_tooling(dc_records, dc_peak, more_pairs=()):
             "peak_measured": measured_peak, "remat": remat_rows}
 
 
-# phase 30 (c): the tensor-parallel dry runs, started with phase 29's
+# phase 30 (a): the MoE family's TP step, per config its depth cut, its
+# parameter count and the launches a step its reference leaf tree implies
+# at block 32 (tests/test_torch_datacenter_moe.py holds them against it)
+TP_MOE = {
+    "olmoe-1b-7b": DC_FAMILIES["olmoe-1b-7b"],
+    "deepseek-v2-lite-16b": ({"n_layers": 2}, 1_085_287_424,
+                             {"stochastic_quant": 29, "block_norms": 22,
+                              "apply_block_mask": 44}),
+}
+# phase 30 (b): the tensor-parallel dry runs, started with phase 29's
 TP_DRYRUN_PAIRS = (
     ("granite-8b", "train_4k", [], '{"act": "seq"}'),
     ("granite-8b", "train_4k", ["--multi-pod"], '{"act": "seq"}'),
     ("granite-8b", "prefill_32k", [], "{}"),
     ("granite-8b", "decode_32k", [], "{}"),
+    ("olmoe-1b-7b", "train_4k", [], "{}"),
+    ("olmoe-1b-7b", "train_4k", ["--multi-pod"], "{}"),
+    ("deepseek-v2-lite-16b", "train_4k", [], "{}"),
+    ("deepseek-v2-lite-16b", "train_4k", [], '{"act": "seq"}'),
+    ("deepseek-v2-lite-16b", "prefill_32k", [], "{}"),
+    ("deepseek-v2-lite-16b", "decode_32k", [], "{}"),
 )
 # the same pairs on the whole-weight path (the dry run as it stood before
-# tensor parallelism; meta records, not measurements): peak bytes a
-# device, t_memory s, collectives, wire bytes
+# tensor parallelism for each family; meta records, not measurements):
+# peak bytes a device, t_memory s, collectives, wire bytes
 WHOLE_WEIGHT_RECORDS = {
-    ("train_4k", "data16xmodel16"): (45102301452, 1.8486313295749253, 88,
-                                     32892649425),
-    ("train_4k", "pod2xdata16xmodel16"): (122553254384, 9.406890434152835,
-                                          89, 18446943305.5),
-    ("prefill_32k", "data16xmodel16"): (40711372800, 37.47164628864955, 9,
-                                        15476981760),
-    ("decode_32k", "data16xmodel16"): (95439208512, 0.12563725978746268, 9,
-                                       15476981760),
+    ("granite-8b", "train_4k", "data16xmodel16"): (
+        45102301452, 1.8486313295749253, 88, 32892649425),
+    ("granite-8b", "train_4k", "pod2xdata16xmodel16"): (
+        122553254384, 9.406890434152835, 89, 18446943305.5),
+    ("granite-8b", "prefill_32k", "data16xmodel16"): (
+        40711372800, 37.47164628864955, 9, 15476981760),
+    ("granite-8b", "decode_32k", "data16xmodel16"): (
+        95439208512, 0.12563725978746268, 9, 15476981760),
+    ("olmoe-1b-7b", "train_4k", "data16xmodel16"): (
+        39079663660, 0.6963947449253731, 96, 27578404342.5),
+    ("olmoe-1b-7b", "train_4k", "pod2xdata16xmodel16"): (
+        87114148884, 3.2436445704967163, 97, 15466315887),
+    ("deepseek-v2-lite-16b", "train_4k", "data16xmodel16"): (
+        89642414924, 1.667526432757015, 192, 62709950797.5),
+    ("deepseek-v2-lite-16b", "prefill_32k", "data16xmodel16"): (
+        52474647552, 14.162098884448955, 20, 29396090880),
+    ("deepseek-v2-lite-16b", "decode_32k", "data16xmodel16"): (
+        60628112448, 0.10873158538268657, 20, 29396090880),
 }
+
+
 def _tp_records(dry_records, procs):
-    """Phase 30 (c): the TP dry runs' records, and phase 29's baseline
+    """Phase 30 (b): the TP dry runs' records, and phase 29's baseline
     train records, each beside the whole-weight record of its pair."""
     records = [r for r in dry_records if r["mode"] == "train"
                and r["variant"] == {} and "model16" in r["mesh"]]
     records += _finish_dryruns(procs, TP_DRYRUN_PAIRS)
     for rec in records:
-        ww = WHOLE_WEIGHT_RECORDS.get((rec["shape"], rec["mesh"]))
+        ww = WHOLE_WEIGHT_RECORDS.get((rec["arch"], rec["shape"],
+                                       rec["mesh"]))
         beside = ("no whole-weight record" if ww is None else
                   f"whole weights: bytes_per_device={ww[0]} "
                   f"t_memory={ww[1]} collectives={ww[2]} wire={ww[3]}")
@@ -4136,36 +4178,33 @@ def _tp_records(dry_records, procs):
     return records
 
 
-def phase_tensor_parallel(dc_records, dry_records, procs):
-    """Phase 30: the dense family's tensor-parallel step on (1, 1)
-    against the plain step and phase 9, and the TP dry runs. A real
-    'model' axis needs two ranks: NCCL puts no two on one card, and
-    gloo's all-gather of CUDA tensors ends the process (PERF.md §7), so
-    the card runs none; the CPU tests run eight."""
+def _tp_steps(mesh, args, arch, want, earlier, n_want=None,
+              profile_dir=None):
+    """Phase 30 (a) for one config: ``arch``'s TP step on the (1, 1)
+    ``mesh`` against the plain step and the whole-weight sharded step
+    (``tensor_parallel=False``, the path the TP one replaced),
+    LAUNCH_STEPS steps with SGD and with the int8 wire format, at the
+    launcher's defaults ``args``: losses and weights bitwise, the SGD
+    losses bitwise ``earlier`` records' (an earlier phase's run of the
+    same step), B1 / B2 / B3 launches a step ``want`` (B1 none under
+    int8), ``n_want`` parameters. With ``profile_dir``, one more SGD step
+    of the TP and of the whole-weight path under torch.profiler, by host
+    time (``profile_tp_step_<arch>.txt``,
+    ``profile_whole_step_<arch>.txt``)."""
     import gc
-    import socket
     import torch
-    import torch.distributed as dist
     from repro_torch.core.ltfl_step import make_fl_train_step
     from repro_torch.launch import sharding as sh
     from repro_torch.launch import train
-    from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim import sgd
-    t0 = time.time()
-
-    def free_port():
-        with socket.socket() as s:
-            s.bind(("localhost", 0))
-            return s.getsockname()[1]
-
-    # (a) the TP path on an NCCL world of one
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
-                            f"{free_port()}", rank=0, world_size=1)
-    mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
-    args = train.build_parser().parse_args([])
     c = args.clients
-    run = train.DatacenterRun(dc_arch(), args, "cuda")
+    run = train.DatacenterRun(arch, args, "cuda")
     model = run.model
+    n_params = sum(v.numel() for v in run.params.values())
+    if n_want is not None and n_params != n_want:
+        fail(f"TP {arch.name}: {n_params} parameters, want {n_want}")
+    log(f"[tp] {arch.name} at its published widths, {arch.n_layers} "
+        f"layers: {n_params} parameters")
     rules = sh.base_rules(mesh, client_axes=("data",))
     psh = sh.param_shardings(mesh, model, rules)
     stacked = sh.stacked_shardings(mesh, model, rules, c, "client")
@@ -4181,9 +4220,20 @@ def phase_tensor_parallel(dc_records, dry_records, procs):
         tp_step = make_fl_train_step(model, sgd(args.lr), c,
                                      param_shardings=stacked,
                                      gather_shardings=gather, **kw)
+        whole_step = make_fl_train_step(model, sgd(args.lr), c,
+                                        param_shardings=stacked,
+                                        gather_shardings=gather,
+                                        tensor_parallel=False, **kw)
         p_plain = {k: v.clone() for k, v in run.params.items()}
         p_tp = {k: sh.distribute(v.clone(), psh[k])
                 for k, v in run.params.items()}
+        p_whole = {k: sh.distribute(v.clone(), psh[k])
+                   for k, v in run.params.items()}
+        want_step = dict(want, block_sparse_matmul=0,
+                         block_sparse_matmul_wgmma=0,
+                         block_sparse_matmul_simt=0)
+        if int8:
+            want_step["stochastic_quant"] = 0
         rows = []
         for i in range(LAUNCH_STEPS):
             torch.cuda.synchronize()
@@ -4197,37 +4247,91 @@ def phase_tensor_parallel(dc_records, dry_records, procs):
                 lambda: tp_step(p_tp, (), (), dbatch, run.controls, i))
             torch.cuda.synchronize()
             tp_s = time.perf_counter() - t1
-            want = {"stochastic_quant": 0 if int8 else 12, "block_norms": 9,
-                    "apply_block_mask": 18, "block_sparse_matmul": 0,
-                    "block_sparse_matmul_wgmma": 0,
-                    "block_sparse_matmul_simt": 0}
-            if got != want:
-                fail(f"TP {label} step {i}: launches {got}, want {want}")
+            t1 = time.perf_counter()
+            p_whole, _, _, m_whole = whole_step(p_whole, (), (), dbatch,
+                                                run.controls, i)
+            torch.cuda.synchronize()
+            whole_s = time.perf_counter() - t1
+            where = f"TP {arch.name} {label} step {i}"
+            if got != want_step:
+                fail(f"{where}: launches {got}, want {want_step}")
             loss, loss_plain = float(m_tp["loss"]), float(m_plain["loss"])
             if not math.isfinite(loss) or loss != loss_plain:
-                fail(f"TP {label} step {i}: loss {loss!r} vs plain "
-                     f"{loss_plain!r}")
-            if not int8 and loss != dc_records[i]["loss"]:
-                fail(f"TP sgd step {i}: loss {loss!r} vs phase 9's "
-                     f"{dc_records[i]['loss']!r}")
+                fail(f"{where}: loss {loss!r} vs plain {loss_plain!r}")
+            if float(m_whole["loss"]) != loss_plain:
+                fail(f"{where}: the whole-weight step's loss "
+                     f"{float(m_whole['loss'])!r} vs plain {loss_plain!r}")
+            if not int8 and earlier is not None \
+                    and loss != earlier[i]["loss"]:
+                fail(f"{where}: loss {loss!r} vs the earlier phase's "
+                     f"{earlier[i]['loss']!r}")
             diff = [k for k in p_plain
-                    if not torch.equal(p_tp[k].to_local(), p_plain[k])]
+                    if not torch.equal(p_tp[k].to_local(), p_plain[k])
+                    or not torch.equal(p_whole[k].to_local(), p_plain[k])]
             if diff:
-                fail(f"TP {label} step {i}: weights differ from the plain "
-                     f"step's at {diff}")
+                fail(f"{where}: weights differ from the plain step's at "
+                     f"{diff}")
             rows.append({"loss": loss, "step_s": tp_s, "plain_step_s":
-                         plain_s, "launches": got})
-            log(f"[tp] (1, 1) {label} step {i}: loss={loss!r} (plain "
-                f"{loss_plain!r}, bitwise"
-                + ("" if int8 else ", phase 9's bitwise")
-                + f") weights bitwise; step_s={tp_s!r} "
-                f"plain_step_s={plain_s!r} launches={got}")
+                         plain_s, "whole_step_s": whole_s, "launches": got})
+            log(f"[tp] (1, 1) {arch.name} {label} step {i}: loss={loss!r} "
+                f"(plain {loss_plain!r}, bitwise"
+                + ("" if int8 or earlier is None
+                   else ", the earlier phase's bitwise")
+                + f") weights bitwise, the whole-weight step's too; "
+                f"step_s={tp_s!r} plain_step_s={plain_s!r} "
+                f"whole_step_s={whole_s!r} launches={got}")
         result[label] = rows
-        del p_plain, p_tp, plain, tp_step
-    dist.destroy_process_group()
+        if profile_dir is not None and not int8:
+            profile_call(lambda: tp_step(p_tp, (), (), dbatch, run.controls,
+                                         LAUNCH_STEPS),
+                         profile_dir / f"profile_tp_step_{arch.name}.txt",
+                         f"TP step {arch.name}", "self_cpu_time_total")
+            profile_call(lambda: whole_step(p_whole, (), (), dbatch,
+                                            run.controls, LAUNCH_STEPS),
+                         profile_dir / f"profile_whole_step_{arch.name}.txt",
+                         f"whole-weight step {arch.name}",
+                         "self_cpu_time_total")
+        del p_plain, p_tp, p_whole, plain, tp_step, whole_step
     del run, model, dbatch
     gc.collect()
     torch.cuda.empty_cache()
+    return result
+
+
+def phase_tensor_parallel(dc_records, dry_records, procs,
+                          family_records, profile_dir=None):
+    """Phase 30: the tensor-parallel step on (1, 1) against the plain
+    step, for the dense family (phase 9's run) and the MoE family
+    (``TP_MOE``; olmoe's losses against phase 18's ``family_records``),
+    and the TP dry runs. A real 'model' axis needs two ranks: NCCL puts
+    no two on one card, and gloo's all-gather of CUDA tensors ends the
+    process (PERF.md §7), so the card runs none; the CPU tests run
+    eight."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.time()
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+
+    # (a) the TP path on an NCCL world of one
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    args = train.build_parser().parse_args([])
+    result = {"granite-8b": _tp_steps(
+        mesh, args, dc_arch(), {"stochastic_quant": 12, "block_norms": 9,
+                                "apply_block_mask": 18}, dc_records)}
+    for name, (cut, n_want, want) in TP_MOE.items():
+        result[name] = _tp_steps(mesh, args, get_arch(name).replace(**cut),
+                                 want, family_records.get(name), n_want,
+                                 profile_dir)
+    dist.destroy_process_group()
     # (b) the dry runs
     records = _tp_records(dry_records, procs)
     log(f"[tp] phase 30 in {time.time() - t0:.1f} s")
@@ -4308,10 +4412,12 @@ def main() -> None:
     # families: small on the card against the CPU, then at published widths
     for name in DC_FAMILIES:
         phase_small_datacenter(name, (torch.float32,))
-    family_launches = {}
+    family_launches, family_records = {}, {}
     for name, (cut, n_want, want) in DC_FAMILIES.items():
-        total, _, _ = phase_datacenter(profile_dir, name, cut, want, n_want)
+        total, _, records = phase_datacenter(profile_dir, name, cut, want,
+                                             n_want)
         family_launches[name] = total
+        family_records[name] = records
     stamp("17-18")
     before = all_launches()
     phase_serve_small(tuple(SERVE_D))
@@ -4345,9 +4451,10 @@ def main() -> None:
     # the launch tooling: dry run, the sharded step, remat
     tooling = phase_launch_tooling(dc_records, dc_peak, TP_DRYRUN_PAIRS)
     stamp("29")
-    # tensor parallelism for the dense family
+    # tensor parallelism for the dense and MoE families
     tensor = phase_tensor_parallel(dc_records, tooling["dryrun"],
-                                   tooling.pop("more_procs"))
+                                   tooling.pop("more_procs"),
+                                   family_records, profile_dir)
     stamp("30")
     log(f"[done] {time.time() - t_start:.1f} s")
 
@@ -4364,10 +4471,13 @@ def main() -> None:
         return {v: tooling["steps"][v][0]["launches"][key]
                 for v in ("sgd", "int8")}
 
-    def tp_launches(key):
+    def tp_launches(key, name="granite-8b"):
         """Phase 30 (a)'s launches a step (the first step's; all equal)."""
-        return {v: tensor["steps"][v][0]["launches"][key]
+        return {v: tensor["steps"][name][v][0]["launches"][key]
                 for v in ("sgd", "int8")}
+
+    def moe_tp_launches(key):
+        return {name: tp_launches(key, name) for name in TP_MOE}
 
     def block_row(name, key, launches, err, extra):
         return {
@@ -4395,6 +4505,8 @@ def main() -> None:
             "host_leftover_launches_per_step": host_launches(name),
             "sharded_step_launches_per_step": tooling_launches(name),
             "tensor_parallel_step_launches_per_step": tp_launches(name),
+            "moe_tensor_parallel_step_launches_per_step":
+                moe_tp_launches(name),
             **extra,
         }
 
@@ -4439,6 +4551,8 @@ def main() -> None:
             tooling_launches("stochastic_quant"),
         "tensor_parallel_step_launches_per_step":
             tp_launches("stochastic_quant"),
+        "moe_tensor_parallel_step_launches_per_step":
+            moe_tp_launches("stochastic_quant"),
     }, block_row("block_norms", "norms", dc_launches["block_norms"],
                  norm_err, {}),
         block_row("apply_block_mask", "mask",

@@ -288,16 +288,18 @@ def make_fl_train_step(model, optimizer: Optimizer, n_clients: int, *,
 
 
 def _tensor_parallel(model, asked: Optional[bool]) -> bool:
-    """Whether the sharded step computes on weight shards: the dense
-    family does (``models.tensor_parallel``), the others compute whole
-    weights."""
+    """Whether the sharded step computes on weight shards: the dense and
+    MoE families do (``models.tensor_parallel.FAMILIES``), the others
+    compute whole weights."""
+    from repro_torch.models.tensor_parallel import FAMILIES
     cfg = getattr(model, "cfg", None)
-    dense = getattr(cfg, "family", None) == "dense"
-    if asked and not dense:
+    family = getattr(cfg, "family", None)
+    tp = family in FAMILIES
+    if asked and not tp:
         raise NotImplementedError(
             f"{getattr(cfg, 'name', model)}: tensor parallelism covers the "
-            f"dense family, not {getattr(cfg, 'family', None)!r}")
-    return dense if asked is None else bool(asked)
+            f"{' and '.join(FAMILIES)} families, not {family!r}")
+    return tp if asked is None else bool(asked)
 
 
 def make_plain_train_step(model, optimizer: Optimizer) -> Callable:

@@ -17,11 +17,14 @@ axes (the mesh dims of each spec's leading entry) and, for the rest of
 each leaf, the parameters' own layout: the params come in as DTensors
 placed that way.
 
-The dense family (``tensor_parallel``, chosen by ``make_fl_train_step``
-from the model's family) computes on its weight shards
-(``models.tensor_parallel``): the forward and backward passes run with
-each leaf's 'model' shard as it rests, and the collectives over 'model'
-are the model's own. So
+The dense and MoE families (``tensor_parallel``, chosen by
+``make_fl_train_step`` from the model's family) compute on their weight
+shards (``models.tensor_parallel``): the forward and backward passes run
+with each leaf's 'model' shard as it rests, and the collectives over
+'model' are the model's own. An expert leaf (E, D, F) is split on its
+leading dim, which cuts no tile; the router's (D, E) columns (64 / 16 =
+4 a rank at full width) and deepseek's dense prefix (d_ff 10944 / 16 =
+684) cut tiles of 32, and take the sub-tiles below. So
 
 1. each leaf is pruned on its shards for the rank's C_l clients:
    ``block_norms`` runs on the shard at sub-tiles as wide as the shard
@@ -47,8 +50,9 @@ are the model's own. So
 On a 'model' dim of one rank the model computes as on one device, and
 the step is bitwise the unsharded step.
 
-The other families (``tensor_parallel`` False) compute their clients'
-gradients with whole weights, so
+The other families (``tensor_parallel`` False: VLM, SSM, hybrid,
+encoder-decoder) compute their clients' gradients with whole weights,
+so
 
 1. each leaf is pruned on its shards for the rank's C_l = C / |client
    axes| clients: ``block_norms`` runs on the rank's shard, the tile
@@ -262,7 +266,7 @@ def make_sharded_step(*, model_loss_grad: Callable, optimizer, n_clients: int,
                       tensor_parallel: bool = False) -> Callable:
     """The step over the mesh of ``param_shardings`` (see the module
     docstring); the arguments are ``make_fl_train_step``'s pieces, and
-    ``tensor_parallel`` picks the dense family's path."""
+    ``tensor_parallel`` picks the path on weight shards."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.func import vmap
 
@@ -432,7 +436,7 @@ def make_sharded_step(*, model_loss_grad: Callable, optimizer, n_clients: int,
                                 ).reshape(g.shape)
 
     def tp_step(params, batch, controls, shapes_of):
-        """Steps 1-3 of the dense family: the gated gradient shards in the
+        """Steps 1-3 on weight shards: the gated gradient shards in the
         parameter layout, the losses and the row-splitting dims."""
         if do_prune:
             pruned, gates = prune_tp(params, lay.clients(controls["rho"]))

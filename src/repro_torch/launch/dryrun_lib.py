@@ -22,21 +22,23 @@ each direction); they are datasheet figures, not measurements.
 
 What the port's steps do on a mesh. Parameters rest sharded by the rule
 table and are pruned on their shards (``core.sharded_step``). The dense
-family computes on its 'model' shards (``models.tensor_parallel``):
+and MoE families compute on their 'model' shards
+(``models.tensor_parallel.FAMILIES``):
 the train step's clients sit on their mesh axes and each client's rows
 split over the remaining dims but 'model' that divide them; prefill and
 decode split the batch over its 'batch' axes and every other dim but
 'model' that divides it, take no whole copy of a weight (``to_local``;
 a weight also sharded over 'data' under fsdp is gathered over 'data'
 only), and hold the decode cache as the rule table splits it (over kv
-heads, or over head_dim where the head count does not divide). The
-residual stream follows the rules' activation axes: over d_model by
-default, over the sequence under ``{"act": "seq"}``, whole with
-'act_embed' None. The other families compute on whole weights: the
-pruned copies all-gathered, each client's rows also split over 'model',
-prefill and decode on ``full_tensor()`` weights, the cache following the
-batch; for them the activation variants (``{"act": "seq"}`` and
-``act_*`` entries of ``rules_override``) raise, naming the family.
+heads, or over head_dim where the head count does not divide; MLA's
+latent cache whole). The residual stream follows the rules' activation
+axes: over d_model by default, over the sequence under ``{"act":
+"seq"}``, whole with 'act_embed' None. The other families compute on
+whole weights: the pruned copies all-gathered, each client's rows also
+split over 'model', prefill and decode on ``full_tensor()`` weights,
+the cache following the batch; for them the activation variants
+(``{"act": "seq"}`` and ``act_*`` entries of ``rules_override``) raise,
+naming the family.
 
 ``compile_seconds`` is the wall time of the meta run (there is no
 compilation). ``variant`` is a dict of overrides: {"prune": False},
@@ -69,6 +71,7 @@ from repro_torch.launch.mesh import (
 )
 from repro_torch.launch.op_analysis import OpCounter
 from repro_torch.models import build_model
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.registry import (
     prefill_batch_struct,
     train_batch_struct,
@@ -140,18 +143,20 @@ def _apply_variant_rules(rules, variant, arch: ArchConfig):
     """The reference's perf-pass overrides: {"act": "seq"} moves the
     residual stream from d_model-sharding to sequence-parallel sharding,
     and {"rules_override": {...}} sets logical -> mesh entries. The
-    activation layouts are the dense family's tensor-parallel path
-    (``models.tensor_parallel``); the other families compute on whole
-    weights and local activations, so for them they raise instead of
-    writing a record equal to the baseline's."""
+    activation layouts are the tensor-parallel path
+    (``models.tensor_parallel``) of its ``FAMILIES``; the other
+    families compute on whole weights and local activations, so for
+    them they raise instead of writing a record equal to the
+    baseline's."""
     override = variant.get("rules_override") or {}
     act = [k for k in ("act",) if k in variant] + \
         [k for k in override if k in ACTIVATION_AXES]
-    if act and arch.family != "dense":
+    if act and arch.family not in tp.FAMILIES:
         raise ValueError(
             f"variant {variant}: activation layouts {act} need tensor "
-            f"parallelism, which the port has for the dense family, not "
-            f"{arch.name}'s {arch.family!r}")
+            f"parallelism, which the port has for the "
+            f"{' and '.join(tp.FAMILIES)} families, not {arch.name}'s "
+            f"{arch.family!r}")
     if "act" in variant:
         if variant["act"] != "seq":
             raise ValueError(f"variant act={variant['act']!r}: only "
@@ -164,10 +169,10 @@ def _apply_variant_rules(rules, variant, arch: ArchConfig):
 
 
 def _tp_scope(arch: ArchConfig, mesh, rules):
-    """The scope the dense family's steps run in (its tensor-parallel
-    context under ``rules``); a null scope for the other families."""
+    """The scope the steps of the tensor-parallel families run in (their
+    context under ``rules``); a null scope for the others."""
     import contextlib
-    if arch.family != "dense":
+    if arch.family not in tp.FAMILIES:
         return contextlib.nullcontext()
     from repro_torch.models.common import logical_rule_scope
     return logical_rule_scope(rules, mesh)
@@ -329,10 +334,10 @@ def _inference_params(arch, mesh, variant):
 
 
 def _compute_params(arch, mesh, params):
-    """The weights one rank computes with: the dense family's 'model'
-    shards (gathered over any other dim that shards them), or every
-    weight whole for the other families."""
-    if arch.family != "dense":
+    """The weights one rank computes with: the 'model' shards of the
+    tensor-parallel families (gathered over any other dim that shards
+    them), or every weight whole for the other families."""
+    if arch.family not in tp.FAMILIES:
         return {k: p.full_tensor() for k, p in params.items()}
     out = {}
     for k, p in params.items():
@@ -346,7 +351,7 @@ def build_prefill(arch: ArchConfig, shape: ShapeConfig, mesh,
                   variant: Dict[str, Any]) -> Built:
     model, rules, params = _inference_params(arch, mesh, variant)
     pl = _serve_layout(mesh, rules, shape.global_batch,
-                       keep_model=arch.family == "dense")
+                       keep_model=arch.family in tp.FAMILIES)
     bs = prefill_batch_struct(arch, shape.global_batch, shape.seq_len)
     batch = {k: _meta_input(v.shape, v.dtype, mesh, pl)
              for k, v in bs.items()}
@@ -364,8 +369,8 @@ def build_decode(arch: ArchConfig, shape: ShapeConfig, mesh,
                  variant: Dict[str, Any]) -> Built:
     model, rules, params = _inference_params(arch, mesh, variant)
     B = shape.global_batch
-    dense = arch.family == "dense"
-    pl = _serve_layout(mesh, rules, B, keep_model=dense)
+    on_shards = arch.family in tp.FAMILIES
+    pl = _serve_layout(mesh, rules, B, keep_model=on_shards)
     cache_abs = model.abstract_cache(B, shape.seq_len)
     axes = model.cache_axes()
     csh = shlib.cache_shardings(mesh, rules, model, cache_abs)
@@ -373,7 +378,7 @@ def build_decode(arch: ArchConfig, shape: ShapeConfig, mesh,
     cache = {}
     for k, v in cache_abs.items():
         cpl = list(_on_batch_dim(pl, axes[k].index("batch")))
-        if dense:             # the rule table's split over 'model'
+        if on_shards:         # the rule table's split over 'model'
             cpl[md] = csh[k].placements[md]
         cache[k] = _meta_input(v.shape, v.dtype, mesh, tuple(cpl))
     tok = _meta_input((B,), torch.int32, mesh, pl)

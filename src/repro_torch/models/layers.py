@@ -31,8 +31,8 @@ family).
 given, in place, and returns that same cache (the reference returns an
 updated copy); with a sliding window the cache is a ring buffer.
 
-Under a tensor-parallel context (``models.tensor_parallel``; the dense
-family's ``DecoderLM`` opens it) the embedding is vocab-parallel, wq /
+Under a tensor-parallel context (``models.tensor_parallel``; the
+``DecoderLM`` of the dense and MoE families opens it) the embedding is vocab-parallel, wq /
 wk / wv (and their biases), wi, wi_gate and wi_up are column-parallel,
 both ``wo`` are row-parallel and ``lm_head`` is column-parallel over the
 vocabulary: each function computes on the rank's shards, which it reads
@@ -455,10 +455,14 @@ def mlp_specs(cfg: ArchConfig, d_ff: Optional[int] = None
     }
 
 
-def mlp_apply(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(cfg: ArchConfig, p: Tree, x: torch.Tensor,
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """The MLP; ``d_ff`` is its hidden width when it is not ``cfg.d_ff``
+    (MoE shared experts, dense prefix layers), which tensor parallelism
+    needs to tell a shard from a whole weight."""
     act = activation(cfg.mlp_act)
     if tp.active() is not None:
-        return _mlp_tp(cfg, p, _entered(x), act)
+        return _mlp_tp(cfg, p, _entered(x), act, d_ff or cfg.d_ff)
     if cfg.glu:
         h = act(x @ p["wi_gate"]) * (x @ p["wi_up"])
     else:
@@ -467,11 +471,12 @@ def mlp_apply(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
     return h @ p["wo"]
 
 
-def _mlp_tp(cfg: ArchConfig, p: Tree, xe: "tp.Enter", act) -> torch.Tensor:
-    """The MLP on the rank's d_ff slice (wi / wi_gate / wi_up column-
-    parallel, wo row-parallel), in the residual stream's layout; with
-    'act_ff' off 'model' the hidden activation is made whole first."""
-    f = cfg.d_ff
+def _mlp_tp(cfg: ArchConfig, p: Tree, xe: "tp.Enter", act, f: int
+            ) -> torch.Tensor:
+    """The MLP of hidden width ``f`` on the rank's slice of it (wi /
+    wi_gate / wi_up column-parallel, wo row-parallel), in the residual
+    stream's layout; with 'act_ff' off 'model' the hidden activation is
+    made whole first."""
     if cfg.glu:
         g, gs = tp.column(xe, p["wi_gate"], None, f)
         u, us = tp.column(xe, p["wi_up"], None, f)

@@ -7,6 +7,14 @@ attending directly in the latent space, so the KV cache per token is
 ``kv_lora_rank + qk_rope_head_dim`` values. ``mla_decode`` writes the
 new token's latent into the cache it is given, in place, and returns
 that same cache.
+
+Under a tensor-parallel context (``models.tensor_parallel``) each rank
+attends its heads: wq, w_uk and w_uv are its column shards, wo its row
+shard; the latent (w_dkv, kv_norm: replicated) is computed whole and
+enters the rank's columns through ``copy_in``. Where the shards cut a
+head, the projections are gathered (in decode, w_uk and w_uv), every
+head attended and the output split before ``wo``. The latent cache is
+whole on every rank.
 """
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.common import (
     ParamSpec,
     apply_rope,
@@ -23,7 +32,7 @@ from repro_torch.models.common import (
     rope_tables,
     shard_hint,
 )
-from repro_torch.models.layers import NEG_INF, attend, write_cache
+from repro_torch.models.layers import NEG_INF, _entered, attend, write_cache
 
 Tree = Dict[str, torch.Tensor]
 
@@ -54,24 +63,60 @@ def _latent(cfg: ArchConfig, p: Tree, x: torch.Tensor
     return rms_norm(dkv[..., :R], p["kv_norm"]), dkv[..., R:]
 
 
+def _heads(cfg: ArchConfig, p: Tree, xe: "tp.Enter"):
+    """q from wq (the rank's columns under tensor parallelism), and the
+    layout of the heads: (q, q sharded, w_uk sharded, w_uv sharded,
+    whether the rank's q, w_uk and w_uv columns are its own whole heads).
+    Outside a context every weight is whole and nothing is sharded."""
+    m = cfg.mla
+    h = cfg.n_heads
+    q, qs = tp.column(xe, p["wq"], None,
+                      h * (m.qk_nope_head_dim + m.qk_rope_head_dim))
+    uk = p["w_uk"].shape[-1] != h * m.qk_nope_head_dim
+    uv = p["w_uv"].shape[-1] != h * m.v_head_dim
+    own = qs and uk and uv and h % tp.active().size == 0
+    return q, qs, uk, uv, own
+
+
 def mla_train(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
     """Causal full-sequence MLA for training and prefill."""
     m = cfg.mla
-    B, S, _ = x.shape
-    h = cfg.n_heads
+    xe = _entered(x)
+    q, qs, uk, uv, own = _heads(cfg, p, xe)
+    # the latent is whole on every rank; the rank's columns (its heads'
+    # keys, values and rope keys) give parts of its gradient
+    c_kv, k_rope = _latent(cfg, p, xe.whole())
+    if own:
+        c_kv, k_rope = tp.copy_in(c_kv), tp.copy_in(k_rope)
+    k_nope = (tp.copy_in(c_kv) if uk and not own else c_kv) @ p["w_uk"]
+    v = (tp.copy_in(c_kv) if uv and not own else c_kv) @ p["w_uv"]
+    if not own:             # the shards cut a head: every head, whole
+        q = tp.gather(q, -1) if qs else q
+        k_nope = tp.gather(k_nope, -1) if uk else k_nope
+        v = tp.gather(v, -1) if uv else v
+    out = _expanded(cfg, q, k_nope, k_rope, v)
+    y = tp.row(out, p["wo"], cfg.n_heads * m.v_head_dim, own)
+    return shard_hint(y, ("batch", "act_seq", "act_embed"))
+
+
+def _expanded(cfg: ArchConfig, q: torch.Tensor, k_nope: torch.Tensor,
+              k_rope: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The expanded attention of the heads that q (B, S, n * qd), k_nope
+    (B, S, n * nope) and v (B, S, n * v) hold, with the shared rope keys
+    (B, S, rope): (B, S, n * v)."""
+    m = cfg.mla
+    B, S, _ = q.shape
     qd = m.qk_nope_head_dim + m.qk_rope_head_dim
-
-    q = (x @ p["wq"]).reshape(B, S, h, qd)
+    h = q.shape[-1] // qd
+    q = q.reshape(B, S, h, qd)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
-    c_kv, k_rope = _latent(cfg, p, x)
-
     cos, sin = rope_tables(S, m.qk_rope_head_dim, cfg.rope_theta,
-                           device=x.device)
+                           device=q.device)
     q_rope = apply_rope(q_rope, cos, sin)
     k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)      # (B,S,1,rope)
 
-    k_nope = (c_kv @ p["w_uk"]).reshape(B, S, h, m.qk_nope_head_dim)
-    v = (c_kv @ p["w_uv"]).reshape(B, S, h, m.v_head_dim)
+    k_nope = k_nope.reshape(B, S, h, m.qk_nope_head_dim)
+    v = v.reshape(B, S, h, m.v_head_dim)
     k = torch.cat([k_nope, k_rope.expand(B, S, h, m.qk_rope_head_dim)],
                   dim=-1)
     qq = torch.cat([q_nope, q_rope], dim=-1)
@@ -79,14 +124,15 @@ def mla_train(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
     # v may be narrower than the qk head_dim; attend only needs q and k
     # to match
     out = attend(cfg.replace(n_kv_heads=cfg.n_heads), qq, k, v, causal=True)
-    y = out.reshape(B, S, h * m.v_head_dim) @ p["wo"]
-    return shard_hint(y, ("batch", "act_seq", "act_embed"))
+    return out.reshape(B, S, h * m.v_head_dim)
 
 
 def mla_prefill_cache(cfg: ArchConfig, p: Tree, x: torch.Tensor
                       ) -> torch.Tensor:
-    """Latent cache for prefill: (B, S, kv_lora + rope), rope applied."""
+    """Latent cache for prefill: (B, S, kv_lora + rope), rope applied;
+    whole on every rank under tensor parallelism."""
     m = cfg.mla
+    x = _entered(x).whole()
     c_kv, k_rope = _latent(cfg, p, x)
     cos, sin = rope_tables(x.shape[1], m.qk_rope_head_dim, cfg.rope_theta,
                            device=x.device)
@@ -98,15 +144,26 @@ def mla_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
                cache: torch.Tensor, pos: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Absorbed decode step. x (B,D); cache (B,S,R+rope), written in place
-    at each row's position and returned; pos (B,)."""
+    at each row's position and returned; pos (B,). Under tensor
+    parallelism the rank's heads attend the whole latent cache (every
+    head where the shards cut one)."""
     m = cfg.mla
-    B = x.shape[0]
     h = cfg.n_heads
     R = m.kv_lora_rank
-    S = cache.shape[1]
     qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    w_uk, w_uv = p["w_uk"], p["w_uv"]
+    xe = _entered(x)
+    q, qs, uk, uv, own = _heads(cfg, p, xe)
+    x = xe.whole()
+    if not own:
+        q = tp.gather(q, -1) if qs else q
+        w_uk = tp.gather(w_uk, -1) if uk else w_uk
+        w_uv = tp.gather(w_uv, -1) if uv else w_uv
+    B = x.shape[0]
+    S = cache.shape[1]
+    n = q.shape[-1] // qd
 
-    q = (x @ p["wq"]).reshape(B, h, qd)
+    q = q.reshape(B, n, qd)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     q_rope = apply_rope_at(q_rope, pos, m.qk_rope_head_dim, cfg.rope_theta)
 
@@ -116,7 +173,7 @@ def mla_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     write_cache(cache, pos, torch.cat([c_kv[:, 0, :], k_rope], dim=-1))
 
     lat, rope_k = cache[..., :R], cache[..., R:]               # (B,S,*)
-    w_uk = p["w_uk"].reshape(R, h, m.qk_nope_head_dim)
+    w_uk = w_uk.reshape(R, n, m.qk_nope_head_dim)
     q_abs = torch.einsum("bhn,rhn->bhr", q_nope, w_uk)         # (B,h,R)
     scores = (torch.einsum("bhr,bsr->bhs", q_abs, lat.to(q_abs.dtype))
               + torch.einsum("bhn,bsn->bhs", q_rope,
@@ -126,6 +183,6 @@ def mla_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     scores = torch.where(valid[:, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     ctx = torch.einsum("bhs,bsr->bhr", probs, lat.to(x.dtype))  # (B,h,R)
-    w_uv = p["w_uv"].reshape(R, h, m.v_head_dim)
-    out = torch.einsum("bhr,rhv->bhv", ctx, w_uv).reshape(B, h * m.v_head_dim)
-    return out @ p["wo"], cache
+    w_uv = w_uv.reshape(R, n, m.v_head_dim)
+    out = torch.einsum("bhr,rhv->bhv", ctx, w_uv).reshape(B, n * m.v_head_dim)
+    return tp.row(out, p["wo"], h * m.v_head_dim, own), cache

@@ -1,11 +1,12 @@
-"""Tensor parallelism on the 'model' mesh dim for the dense decoder family.
+"""Tensor parallelism on the 'model' mesh dim for the dense and MoE
+decoder families (``FAMILIES``).
 
 Makes concrete what the reference leaves to GSPMD. Its rule table
 (``repro.launch.sharding`` lines 38-91) puts every dense weight dim --
-vocab, heads_fused, kv_fused, head_dim, d_ff -- on 'model', and XLA
-partitions ``repro.models.layers`` and ``repro.models.transformer`` over
-those shards. Here each rank computes on plain local tensors, and the
-collectives are explicit:
+vocab, heads_fused, kv_fused, head_dim, d_ff -- and the experts on
+'model', and XLA partitions ``repro.models.layers``, ``.moe``, ``.mla``
+and ``.transformer`` over those shards. Here each rank computes on plain
+local tensors, and the collectives are explicit:
 
 * a column-parallel projection (wq, wk, wv and their biases, wi,
   wi_gate, wi_up, the vocab-parallel lm_head) reads the replicated
@@ -41,6 +42,32 @@ collectives are explicit:
   activation has no sequence dim and is split over d_model only. 'act_ff'
   None makes the MLP's hidden activation whole before ``wo``.
 
+The MoE FFN (``models.moe``) keeps the experts whole and splits them
+over 'model' (``experts``: the leading dim of w_gate / w_up / w_in /
+w_down, and the router's columns; ``expert_range`` reads the rank's
+experts from the local leading dim). Token groups and the capacity are
+defined on the global token order, so the block input is made whole
+first under every layout (``Enter.part``: each rank's experts and router
+columns give a part of its gradient). The router's logits are gathered,
+so every rank routes every token alike (softmax, top-k, the auxiliary
+loss) and lays out the dispatch and combine masks of its own experts (a
+slot depends only on the assignments to its expert); the routing
+weights pass ``copy_in``, since each rank's combine gives a part of
+their gradient, and the auxiliary loss, the same on every rank, is
+added once. The rank's partial output leaves as a
+row-parallel product does. The decode path gathers each token's top-k
+weights from the rank's experts only (others masked to zero) and sums
+over 'model'. Shared experts and the dense prefix layers are MLPs (d_ff
+on 'model').
+
+Multi-head latent attention (``models.mla``): wq, w_uk and w_uv are
+column-parallel over heads (heads_fused), wo row-parallel; w_dkv and
+kv_norm (kv_lora) are replicated, so the latent is computed whole and
+enters the rank's w_uk / w_uv columns (and its heads' rope keys) through
+``copy_in``. Where the shards cut a head the projections are gathered,
+attended whole and split before ``wo``. The latent cache is whole on
+every rank, and the absorbed decode runs the rank's heads against it.
+
 A weight's layout is read from its local shape. A leaf as wide as the
 config says is whole: ``make_pspec`` replicated it, and it is computed
 replicated. A narrower one is the rank's contiguous shard.
@@ -59,8 +86,8 @@ The context (``TPContext``) is the mesh, the 'model' dim, this rank's
 coordinate on it, its size and the rules (by default the reference's
 ``base_rules``). ``scope`` enters it; ``models.common.logical_rule_scope``
 does, and so do the sharded step and the dry run. ``region`` marks the
-model code that honours it, which is ``DecoderLM`` of the dense family,
-and fixes the residual stream's layout from its global shape; ``bind``
+model code that honours it, which is ``DecoderLM`` of ``FAMILIES``, and
+fixes the residual stream's layout from its global shape; ``bind``
 carries both into a layer that ``remat`` recomputes in the backward
 pass. Outside them, or on a 'model' dim of size 1, ``active()`` is None
 and every helper is the identity, so the one-card paths are bitwise as
@@ -72,6 +99,9 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+# the families whose models compute on their 'model' shards
+FAMILIES = ("dense", "moe")
 
 
 class TPContext(NamedTuple):
@@ -463,3 +493,14 @@ def head_range(n_heads: int, n_kv: int) -> Optional[Tuple[int, int]]:
         return None
     lo = c.rank * h_l // g
     return lo, lo + max(h_l // g, 1)
+
+
+def expert_range(local: int, total: int) -> Tuple[int, int]:
+    """The experts [lo, hi) of ``total`` that this rank holds, from the
+    ``local`` leading dim of its expert weights: all of them for a leaf
+    as wide as the config (or outside a context), else the rank's
+    contiguous shard."""
+    c = active()
+    if c is None or local == total:
+        return 0, total
+    return c.rank * local, (c.rank + 1) * local

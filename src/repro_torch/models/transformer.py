@@ -25,14 +25,15 @@ window caps S (a ring buffer). ``decode_step`` writes into the cache it
 is given and returns that same dict: a caller must not reuse a cache it
 has passed in as the state before the step.
 
-Tensor parallelism (``models.tensor_parallel``) covers the dense family
-only: under a context with a 'model' dim of more than one rank its
-``forward``, ``loss``, ``prefill`` and ``decode_step`` compute on the
-rank's weight shards (the logits are the rank's slice of the vocabulary,
-the loss the vocab-parallel cross-entropy, the cache the rank's part as
-the rule table splits it). The MoE and VLM families have no such path:
-under a context they raise, and the sharded step gives them whole
-weights (``core.sharded_step``).
+Tensor parallelism (``models.tensor_parallel``) covers the dense and
+MoE families (``tensor_parallel.FAMILIES``): under a context with a
+'model' dim of more than one rank their ``forward``, ``loss``,
+``prefill`` and ``decode_step`` compute on the rank's weight shards (the
+logits are the rank's slice of the vocabulary, the loss the
+vocab-parallel cross-entropy, the cache the rank's part as the rule
+table splits it; MLA's latent cache is whole). The VLM family has no
+such path: under a context it raises, and the sharded step gives it
+whole weights (``core.sharded_step``).
 """
 from __future__ import annotations
 
@@ -89,6 +90,8 @@ class DecoderLM:
         self.remat = remat
         self.n_prefix = cfg.moe.first_k_dense if cfg.moe else 0
         self.n_scanned = cfg.n_layers - self.n_prefix
+        # a dense layer's hidden width (an MoE config's prefix layers')
+        self.dense_ff = cfg.moe.dense_d_ff if cfg.moe else cfg.d_ff
 
     # ------------------------------------------------------------------ #
     # params
@@ -130,15 +133,16 @@ class DecoderLM:
 
     def _tp(self, seq_len: Optional[int]):
         """The tensor-parallel region over a residual stream of ``seq_len``
-        tokens (None: one a row, decode): the dense family computes on
-        weight shards under a context; the other families have no such
-        path."""
-        if self.cfg.family == "dense":
+        tokens (None: one a row, decode): the dense and MoE families
+        compute on weight shards under a context; the VLM family has no
+        such path."""
+        if self.cfg.family in tp.FAMILIES:
             return tp.region(seq_len, self.cfg.d_model)
         if tp.current() is not None:
             raise NotImplementedError(
-                f"{self.cfg.name}: tensor parallelism covers the dense "
-                f"family, not {self.cfg.family!r}")
+                f"{self.cfg.name}: tensor parallelism covers the "
+                f"{' and '.join(tp.FAMILIES)} families, not "
+                f"{self.cfg.family!r}")
         return contextlib.nullcontext()
 
     def _norm(self, x: torch.Tensor, p: Tree, prefix: str):
@@ -186,7 +190,7 @@ class DecoderLM:
         if "router" in ffn:                # MoE layer (prefix layers are dense)
             f, aux = moe_mod.moe_apply(cfg, ffn, h2)
         else:
-            f, aux = mlp_apply(cfg, ffn, h2), None
+            f, aux = mlp_apply(cfg, ffn, h2, self.dense_ff), None
         return shard_hint(x + f, ("batch", "act_seq", "act_embed")), aux
 
     def _remat_block(self, lp: Tree, x: torch.Tensor
@@ -278,7 +282,7 @@ class DecoderLM:
         ffn = subtree(lp, "ffn.")
         if "router" in ffn:
             return x + moe_mod.moe_apply_token(cfg, ffn, h2)
-        return x + mlp_apply(cfg, ffn, h2)
+        return x + mlp_apply(cfg, ffn, h2, self.dense_ff)
 
     def decode_step(self, params: Tree, token: torch.Tensor,
                     pos: torch.Tensor, cache: Tree

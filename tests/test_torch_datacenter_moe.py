@@ -30,14 +30,23 @@ def test_olmoe_datacenter_step_matches_reference():
     assert math.isfinite(float(m["loss"]))
 
 
-def test_chip_smoke_family_launch_counts_are_the_reference_tree_s():
-    """``chip_smoke.DC_FAMILIES``: per config at its depth cut, one
-    quantizer launch per leaf of the reference's tree, one block_norms
-    per tileable leaf (``repro.core.pruning.tileable`` at block 32), two
-    apply_block_mask per tileable leaf, and the parameter count."""
+def _chip_smoke():
     import importlib.util
     from pathlib import Path
 
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    return chip_smoke
+
+
+def _assert_reference_tree(table):
+    """Per config of ``table`` (name: (depth cut, parameters, launches)):
+    one quantizer launch per leaf of the reference's tree, one
+    block_norms per tileable leaf (``repro.core.pruning.tileable`` at
+    block 32), two apply_block_mask per tileable leaf, and the parameter
+    count."""
     import jax
     import numpy as np
 
@@ -45,12 +54,7 @@ def test_chip_smoke_family_launch_counts_are_the_reference_tree_s():
     from repro.core.pruning import tileable
     from repro.models import build_model as ref_build_model
 
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    assert len(chip_smoke.DC_FAMILIES) == 4
-    for name, (cut, n_params, want) in chip_smoke.DC_FAMILIES.items():
+    for name, (cut, n_params, want) in table.items():
         specs = ref_build_model(ref_configs.get_arch(name).replace(
             **cut)).param_specs()
         leaves = jax.tree_util.tree_leaves(
@@ -61,6 +65,25 @@ def test_chip_smoke_family_launch_counts_are_the_reference_tree_s():
                         "block_norms": tiles,
                         "apply_block_mask": 2 * tiles}, name
         assert n_params == sum(int(np.prod(s.shape)) for s in leaves)
+
+
+def test_chip_smoke_family_launch_counts_are_the_reference_tree_s():
+    """``chip_smoke.DC_FAMILIES``: per config at its depth cut, the
+    launches a step and the parameter count of the reference's tree."""
+    chip_smoke = _chip_smoke()
+    assert len(chip_smoke.DC_FAMILIES) == 4
+    _assert_reference_tree(chip_smoke.DC_FAMILIES)
+
+
+def test_chip_smoke_moe_tensor_parallel_counts_are_the_reference_tree_s():
+    """``chip_smoke.TP_MOE`` (phase 30's MoE configs on the tensor-
+    parallel step): olmoe-1b-7b as phase 18 cuts it, and
+    deepseek-v2-lite-16b at 2 layers (the dense prefix layer and one MoE
+    layer: 29 leaves, 22 of them tileable at block 32)."""
+    chip_smoke = _chip_smoke()
+    assert sorted(chip_smoke.TP_MOE) == ["deepseek-v2-lite-16b",
+                                         "olmoe-1b-7b"]
+    _assert_reference_tree(chip_smoke.TP_MOE)
 
 
 def test_one_hot_is_f_one_hot_and_maps_over_clients():

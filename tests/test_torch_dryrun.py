@@ -13,12 +13,14 @@ whisper-medium x prefill_32k, and train_4k as a scanned segment of 2
 rounds with about twice the single round's FLOPs), and its documented
 skip prints SKIP and exits 0. No jax is imported.
 
-The dense family computes on its 'model' shards (tensor parallelism):
-its activation variants ({"act": "seq"}, 'act_*' overrides) lay out the
-residual stream and give records of their own, and granite-8b x
-train_4k under {"act": "seq"} peaks below the whole-weight step's record
-for the same pair (391,199,604,656 bytes a device, the port's dry run
-before tensor parallelism). The other families still raise for them.
+The dense and MoE families compute on their 'model' shards (tensor
+parallelism): their activation variants ({"act": "seq"}, 'act_*'
+overrides) lay out the residual stream and give records of their own.
+granite-8b x train_4k under {"act": "seq"} peaks below the whole-weight
+step's record for the same pair (391,199,604,656 bytes a device, the
+port's dry run before tensor parallelism), and so does
+deepseek-v2-lite-16b x train_4k (412,236,220,148 bytes). The other
+families still raise for them.
 """
 import json
 import os
@@ -42,8 +44,10 @@ VARIANTS = [{"act": "seq"}, {"rules_override": {"act_embed": None}},
             {"rules_override": {"act_seq": ["model"], "d_ff": None}}]
 for _i, _v in enumerate(VARIANTS):
     PAIRS[f"act{_i}"] = ("granite-8b", "train_4k", json.dumps(_v))
-# granite-8b x train_4k on (2, 4), the port's step on whole weights
+PAIRS["moe"] = ("deepseek-v2-lite-16b", "train_4k", json.dumps(VARIANTS[0]))
+# train_4k on (2, 4), the port's step on whole weights
 WHOLE_WEIGHT_PEAK = 391199604656
+MOE_WHOLE_WEIGHT_PEAK = 412236220148              # deepseek-v2-lite-16b
 
 
 @pytest.fixture(scope="module")
@@ -155,8 +159,7 @@ def test_pruning_kernels_run_on_shards(block):
         dist.destroy_process_group()
 
 
-OTHER_FAMILIES = {"moe": "olmoe-1b-7b", "mla": "deepseek-v2-lite-16b",
-                  "vlm": "phi-3-vision-4.2b", "ssm": "rwkv6-7b",
+OTHER_FAMILIES = {"vlm": "phi-3-vision-4.2b", "ssm": "rwkv6-7b",
                   "hybrid": "zamba2-2.7b", "encdec": "whisper-medium"}
 
 
@@ -174,6 +177,46 @@ def test_activation_variants_raise(variant, family):
     with pytest.raises(ValueError, match="tensor parallelism.*"
                        + arch.family):
         dryrun_lib._apply_variant_rules(sh.base_rules(mesh), variant, arch)
+
+
+@pytest.mark.parametrize("i", range(len(VARIANTS)))
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-lite-16b"])
+def test_activation_variants_lay_out_the_moe_family(arch, i):
+    # the MoE family's variants resolve to rules that move the residual
+    # stream's split (over the sequence, or none) and keep the experts,
+    # the router's columns and the heads on 'model'
+    from repro_torch import configs
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import build_model
+    from repro_torch.models.tensor_parallel import TPContext
+    mesh = AbstractMesh((("data", 2), ("model", 4)))
+    cfg = configs.get_arch(arch)
+    base = sh.base_rules(mesh)
+    rules = dryrun_lib._apply_variant_rules(dict(base), VARIANTS[i], cfg)
+    changed = {k for k in rules if rules[k] != base[k]}
+    assert changed == [{"act_seq", "act_embed"}, {"act_embed"},
+                       {"act_seq", "d_ff"}][i]
+
+    def split(r):
+        ctx = TPContext(mesh, 1, 0, 4, r)
+        return ctx.on_model((4096, cfg.d_model), ("act_seq", "act_embed"))
+    assert split(base) == -1                     # d_model, the baseline
+    assert split(rules) == [-2, None, -2][i]     # the sequence, or whole
+    psh = sh.param_shardings(mesh, build_model(cfg), rules)
+    for k, s in psh.items():
+        if k.split(".")[-1] in ("router", "w_gate", "w_up", "w_down", "wq",
+                                "w_uk", "w_uv"):
+            assert "model" in s.spec, (k, s.spec)
+
+
+def test_moe_dry_run_peaks_below_the_whole_weight_record(runs):
+    (rec,) = _ok(runs["moe"])
+    assert rec["arch"] == "deepseek-v2-lite-16b" and rec["mode"] == "train"
+    assert rec["variant"] == VARIANTS[0] and rec["n_clients"] == 2
+    assert 0 < rec["bytes_per_device"] < MOE_WHOLE_WEIGHT_PEAK
+    assert rec["collective_count"] > 0
 
 
 @pytest.mark.parametrize("i", range(len(VARIANTS)))

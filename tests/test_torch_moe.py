@@ -17,7 +17,10 @@ experts to the bf16 noise: the port's output no farther from the
 reference's float32 output than 1.25 times the reference's own bf16
 output is. The routing itself has no ties on these inputs: the k + 1
 largest router probabilities of every token are apart by more than
-1e-6, so float32 noise cannot reorder them.
+1e-6, so float32 noise cannot reorder them. Exact ties are held apart:
+``moe._top_k`` gives the same indices and values as ``jax.lax.top_k``
+on rows with planted ties (all equal, pairs, ties across the k-th
+place, few distinct levels).
 """
 import dataclasses
 import functools
@@ -29,6 +32,7 @@ import torch
 # the JAX reference; the machine with the card has no jax, so there
 # this module skips (its tests compare against the reference)
 pytest.importorskip("jax")
+import jax
 import jax.numpy as jnp
 
 from repro.models import build_model as ref_build_model
@@ -90,13 +94,13 @@ def test_moe_apply_matches_reference_with_drops(name):
     # no near-ties among each token's k + 1 largest router probabilities
     K, E = cfg.moe.top_k, cfg.moe.num_experts
     # B * S = 256 tokens: one group
-    probs, top_w, top_i = moe._route(tp, x.reshape(1, B * S, -1), K)
+    probs, top_w, top_i = moe._route(tp, x.reshape(1, B * S, -1), K, E)
     top = torch.topk(probs, K + 1, dim=-1).values
     assert float((top[..., :-1] - top[..., 1:]).min()) > 1e-6
 
     # drops: fewer kept assignments than tokens x k on the port ...
     C = moe._capacity(B * S, K, E, cfg.moe.capacity_factor)
-    dispatch, _ = moe._dispatch_masks(top_w, top_i, E, C, torch.float32)
+    dispatch, _ = moe._dispatch_masks(top_w, top_i, C, torch.float32, 0, E)
     kept = int(dispatch.sum())
     assert 0 < B * S * K - kept, "no token was dropped"
     # ... and on the reference, whose output moves without them
@@ -172,3 +176,34 @@ def test_capacity_and_specs_match_reference():
             assert (s.dtype == torch.float32) == \
                 (flat_ref[k].dtype == jnp.float32), k
         assert specs["router"].dtype == torch.float32
+
+
+def _tied_rows(kind):
+    """(rows of 8 float32 router probabilities with exact ties, k)."""
+    rng = np.random.default_rng(3)
+    if kind == "all_equal":                # an all-zero token's softmax
+        return np.full((4, 8), 0.125, np.float32), 2
+    if kind == "pairs":                    # every value twice, shuffled
+        rows = np.stack([rng.permutation(np.repeat(rng.random(4), 2))
+                         for _ in range(16)])
+        return rows.astype(np.float32), 3
+    if kind == "kth_place":                # the tie straddles place k
+        rows = np.tile(np.linspace(0.9, 0.1, 8, dtype=np.float32), (8, 1))
+        rows[:, [1, 2, 5]] = 0.5
+        return np.stack([rng.permutation(r) for r in rows]), 2
+    # "levels": random rows over 3 distinct values, every tie pattern
+    levels = np.array([0.1, 0.3, 0.6], np.float32)
+    return levels[rng.integers(0, 3, (64, 8))], 6
+
+
+@pytest.mark.parametrize("kind", ["all_equal", "pairs", "kth_place",
+                                  "levels"])
+def test_top_k_breaks_ties_as_the_reference(kind):
+    # torch.topk orders exact ties otherwise than lax.top_k; the port's
+    # _top_k must pick the same experts in the same order
+    rows, k = _tied_rows(kind)
+    w, i = moe._top_k(torch.from_numpy(rows), k)
+    rw, ri = jax.lax.top_k(jnp.asarray(rows), k)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+    np.testing.assert_array_equal(w.numpy(), np.asarray(rw))
+    assert len(np.unique(rows)) < rows.size    # ties were planted

@@ -1,4 +1,4 @@
-"""Tensor parallelism over 'model' for the dense decoder family
+"""Tensor parallelism over 'model' for the dense and MoE decoder families
 (``models.tensor_parallel``) on a real (2, 4) mesh of 8 gloo ranks:
 clients on 'data', weights on 'model' by the rule table, each rank
 computing on its shards. Held against the port's unsharded step and the
@@ -7,7 +7,7 @@ the installed jax, so it runs on one device), on the same weights
 (carried across as numpy), batch and quantizer uniforms (the
 reference's, rebuilt from the round seed and handed to the port).
 
-Two reduced configs (``reduce_for_smoke``, float32, 2 layers, width 256):
+Reduced configs (``reduce_for_smoke``, float32, 2 layers, width 256):
 
 * granite-8b with 2 kv heads: its 4 q heads split over 'model', its kv
   heads do not (kv_fused 128 = 4 x 32 cuts each 64-wide head, as 1024 /
@@ -17,7 +17,26 @@ Two reduced configs (``reduce_for_smoke``, float32, 2 layers, width 256):
 * qwen1.5-32b with 6 heads of 32 (QKV bias): no head count divides 4,
   so q, k and v are gathered, attended whole and split before ``wo``
   (as qwen's 40 heads over 16 at full width); its stacked biases are
-  pruned by magnitude on their gathered importance.
+  pruned by magnitude on their gathered importance;
+* olmoe-1b-7b with 8 experts at top 2 (2 a rank) and capacity factor
+  0.5, so that a group of 64 tokens drops assignments past its capacity
+  of 8 (the test asserts it does): a wrong grouping, such as groups cut
+  from the sequence shards of {"act": "seq"}, shows there. Block 8, so
+  the router's 2-column shards are pruned by sub-tiles, as the full-width
+  router's 4 columns are at block 32;
+* deepseek-v2-lite-16b with 8 experts at top 2: MLA over 4 heads (one a
+  rank, the latent replicated), a dense prefix layer and one shared
+  expert (d_ff on 'model'); its router, not tileable at 64, is pruned by
+  magnitude;
+* deepseek-v2-lite-16b with 6 heads and 6 experts ("deepseek_cut", the
+  sequence layout unquantized, against both unsharded steps, and
+  serving): the heads' shards cut heads and the experts do not split
+  over 4, the fallbacks.
+
+The routing of the MoE configs has no near-ties on these inputs (each
+token's k + 1 largest router probabilities apart by more than 1e-6, on
+each client's pruned weights and in serving), so the float32 rounding
+of the tensor-parallel sums cannot reorder them.
 
 The step runs with the LTFL quantizer under the baseline layout (the
 residual stream split over d_model) and unquantized under all three
@@ -27,17 +46,23 @@ tiles, so their norms come from sub-tiles. The ranks get their inputs
 through a file and run ``torch_tp_worker.run_rank`` (no jax there).
 
 Tolerances (the worst seen in parentheses): the loss and range sums 1e-5
-relative (loss 0 against the port, 7.2e-8 against the reference); every
-updated weight 1e-6 absolute (6.0e-8): the reductions over 'model' sum
-in another order. With the quantizer that float32 rounding can carry a
-coordinate across a stochastic level boundary, so a leaf may have up to
-1e-4 of its coordinates off by a level, each within the leaf's largest
-update (seen: one coordinate in a leaf, against both the port and the
-reference; none unquantized). The prefill's logits rel 1e-5 (9.4e-7) and
-its bf16 cache within one bf16 ulp on at most 1e-3 of its elements; 4
-decode steps from it, each side from its own cache, rel 3e-4 (4.1e-5):
-``torch_parity``'s bounds. On a 'model' dim of one rank the step is
-bitwise the unsharded step, with the quantizer and the int8 wire format.
+relative (loss 7.2e-8 against the port and against the reference; range
+sums 1.9e-6); every updated weight 1e-6 absolute (unquantized 1.2e-7):
+the reductions over 'model' sum in another order. With the quantizer
+that float32 rounding can carry a coordinate across a stochastic level
+boundary, so a leaf may have up to 1e-4 of its coordinates off by a
+level, each within the leaf's largest update (seen: 1.5e-5 of a leaf,
+four coordinates of olmoe against the reference; none unquantized). The
+prefill's logits rel 1e-5 (1.1e-6) and its bf16 cache within one bf16
+ulp on at most 1e-3 of its elements; 4 decode steps from it, each side
+from its own cache, rel 3e-4 (2.0e-4, deepseek_cut, whose unsharded
+decode is as far from the reference's: the bf16 cache):
+``torch_parity``'s bounds. The reference's prefill and decode step run
+under ``jax.jit``. On a 'model' dim of one rank the step is bitwise the
+unsharded step, with the quantizer and the int8 wire format.
+
+The VLM, SSM, hybrid and encoder-decoder families have no tensor-
+parallel path: asked for one they raise, naming their family.
 """
 import math
 import os
@@ -59,8 +84,8 @@ from repro_torch.core.ltfl_step import make_fl_train_step       # noqa: E402
 from repro_torch.models import build_model, params_from_numpy   # noqa: E402
 from repro_torch.optim import sgd                               # noqa: E402
 from torch_tp_worker import (                                   # noqa: E402
-    BLOCK, C, CASES, CONFIGS, CONTROLS, LR, ROWS, SEED, SEQ, STEPS,
-    controls, make_step, port, port_config, run_rank, source)
+    C, CONFIGS, CONTROLS, LR, ROWS, SEED, SEQ, STEPS, block, cases,
+    controls, make_step, port, port_config, reduced, run_rank, source)
 
 from torch_parity import (                                      # noqa: E402
     CHAIN_TOL,
@@ -76,6 +101,21 @@ from torch_parity import (                                      # noqa: E402
 )
 
 LOSS_TOL, WEIGHT_TOL, FLIPS = 1e-5, 1e-6, 1e-4
+MOE = [n for n in CONFIGS if CONFIGS[n][2]]
+TIE_GAP = 1e-6
+# blocks at which every weight of two or more dims is pruned by tiles (a
+# leaf pruned by magnitude gathers its float32 importance, which an
+# all-gather's shape and dtype cannot tell from a float32 router)
+GATHER_BLOCK = {"granite": 64, "olmoe": 8, "deepseek": 8}
+# gathers of the TP step that share their element count and dtype with a
+# 'model'-sharded leaf and are not weights: deepseek's float32 tile-norm
+# grids of w_gate / w_up and of w_down at block 8 (2,048 values, as many
+# as its router), and its residual stream (4 rows x 32 tokens x 64 of
+# d_model a rank, bf16, as many values as wo) gathered whole for the MoE
+# block's input
+NOT_WEIGHTS = {"deepseek": {((128, 16), torch.float32),
+                            ((64, 32), torch.float32),
+                            ((4, 4, 32, 64), torch.bfloat16)}}
 
 
 def _inputs(name):
@@ -134,13 +174,19 @@ def _assert_step(got, want, want_loss, want_rsq, old, flips):
             assert not bool(off.any()), (k, float(diff.max()))
 
 
-@pytest.mark.parametrize("layout,uplink", CASES)
-@pytest.mark.parametrize("name", list(CONFIGS))
+def _ref_config(name):
+    from repro.configs import get_arch, reduce_for_smoke
+    return reduced(reduce_for_smoke(get_arch(CONFIGS[name][0])), name)
+
+
+@pytest.mark.parametrize("name,layout,uplink", [
+    (name, layout, uplink) for name in CONFIGS
+    for layout, uplink in cases(name)])
 def test_tp_step_matches_the_unsharded_step(ranks, inputs, name, layout,
                                             uplink):
     tree, tokens, _, uniforms = inputs[name]
     _, model, params, batch = port(name, tree, tokens)
-    new, _, _, m = make_step(model, uniforms, uplink)(
+    new, _, _, m = make_step(model, uniforms, uplink, block(name))(
         params, (), (), batch, controls(), SEED)
     _assert_step(ranks[name, layout, uplink], new, m["loss"],
                  m["range_sq"].numpy(), params, uplink == "ltfl")
@@ -148,12 +194,14 @@ def test_tp_step_matches_the_unsharded_step(ranks, inputs, name, layout,
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_tp_step_matches_the_reference(ranks, inputs, name):
-    uplink = "ltfl"
+    # each config's first case: the quantized baseline layout, and for
+    # the fallbacks' config its sequence layout unquantized
+    layout, uplink = cases(name)[0]
     tree, tokens, _, _ = inputs[name]
     _, _, params, _ = port(name, tree, tokens)
-    ref_cfg, _ = arch_pair(CONFIGS[name][0], **CONFIGS[name][1])
-    ref_step = jax.jit(ref_make_step(ref_build_model(ref_cfg), ref_sgd(LR),
-                                     C, prune_block=BLOCK,
+    ref_step = jax.jit(ref_make_step(ref_build_model(_ref_config(name)),
+                                     ref_sgd(LR), C,
+                                     prune_block=block(name),
                                      quantize=uplink == "ltfl"))
     t = jnp.asarray(tokens, jnp.int32)
     ctl = {k: jnp.asarray(v, jnp.float32) for k, v in CONTROLS.items()}
@@ -162,17 +210,16 @@ def test_tp_step_matches_the_reference(ranks, inputs, name):
                             jax.random.PRNGKey(SEED))
     want = {k: v.float() for k, v in
             params_from_numpy(tree_numpy(rp)).items()}
-    _assert_step(ranks[name, "d_model", uplink], want, rm["loss"],
+    _assert_step(ranks[name, layout, uplink], want, rm["loss"],
                  np.asarray(rm["range_sq"]), params, uplink == "ltfl")
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_tp_prefill_and_decode_match_the_reference(ranks, inputs, name):
     tree, tokens, steps, _ = inputs[name]
-    ref_cfg, _ = arch_pair(CONFIGS[name][0], **CONFIGS[name][1])
-    ref_model = ref_build_model(ref_cfg)
+    ref_model = ref_build_model(_ref_config(name))
     rp = as_jax(tree, jnp.float32)
-    logits, pcache = ref_model.prefill(
+    logits, pcache = jax.jit(ref_model.prefill)(
         rp, {"tokens": jnp.asarray(tokens[0], jnp.int32)})
     got = ranks[name, "serve"]
     assert rel(got["prefill"].numpy(), np.asarray(logits)) <= TOL
@@ -181,19 +228,22 @@ def test_tp_prefill_and_decode_match_the_reference(ranks, inputs, name):
     cache = ref_model.init_cache(ROWS, SEQ + STEPS)
     cache = {k: v.at[:, :, :SEQ].set(pcache[k]) for k, v in cache.items()}
     pos = jnp.full((ROWS,), SEQ, jnp.int32)
+    decode = jax.jit(ref_model.decode_step)
     for i, t in enumerate(steps):
-        lg, cache = ref_model.decode_step(rp, jnp.asarray(t, jnp.int32), pos,
-                                          cache)
+        lg, cache = decode(rp, jnp.asarray(t, jnp.int32), pos, cache)
         assert rel(got["decode"][i].numpy(), np.asarray(lg)) <= CHAIN_TOL, \
             (name, i)
         pos = pos + 1
 
 
-def test_no_model_shard_is_gathered_whole():
+@pytest.mark.parametrize("name", list(GATHER_BLOCK))
+def test_no_model_shard_is_gathered_whole(name):
     # the TP step on the test mesh's fake group (meta tensors): no
     # all-gather's output holds a 'model'-sharded weight leaf (or a
-    # client stack of them) in its dtype; the whole-weight path gathers
-    # every one, which shows the check sees such gathers
+    # client stack of them) in its dtype, over any group, but for the
+    # gathers NOT_WEIGHTS names, which no leaf's gather could be; the
+    # whole-weight path gathers every leaf, which shows the check sees
+    # such gathers
     import torch.distributed as dist
 
     from repro_torch.configs.base import ShapeConfig
@@ -201,22 +251,36 @@ def test_no_model_shard_is_gathered_whole():
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.mesh import fake_process_group, make_test_mesh
     from repro_torch.launch.op_analysis import OpCounter
-    cfg = port_config("granite")
+    cfg = port_config(name)
+    variant = {"prune_block": GATHER_BLOCK[name]}
     fake_process_group(8)
     try:
         mesh = make_test_mesh(device_type="cpu")
         model = build_model(cfg)
         built = dryrun_lib.build_train(cfg, ShapeConfig("t", 32, 8, "train"),
-                                       mesh, {"prune_block": BLOCK})
+                                       mesh, variant)
         psh = sh.param_shardings(mesh, model, built.rules)
-        leaves = {(v.numel() * n, v.dtype)
-                  for k, v in model.abstract_params().items()
-                  if "model" in psh[k].spec for n in (1, C // 2)}
+        leaves, shapes = set(), set()
+        for k, v in model.abstract_params().items():
+            if "model" in psh[k].spec:
+                local = tuple(psh[k].local_shape(tuple(v.shape)))
+                for n in (1, C // 2):
+                    leaves.add((v.numel() * n, v.dtype))
+                    shapes.add(((4 * n,) + local, v.dtype))
+                shapes.add(((4 * local[0],) + local[1:], v.dtype))
         assert leaves
+        # the exclusions are not the shape of any leaf's gather
+        assert not NOT_WEIGHTS.get(name, set()) & shapes
+        if name in MOE:          # the experts and the router's columns
+            assert all("model" in psh[k].spec for k in psh
+                       if k.split(".")[-1] in ("router", "w_gate", "w_up",
+                                               "w_down"))
 
         def whole_gathers(counter):
             return [e for e in counter.coll_log if e["kind"] == "all-gather"
-                    and (math.prod(e["shape"]), e["dtype"]) in leaves]
+                    and (math.prod(e["shape"]), e["dtype"]) in leaves
+                    and (e["shape"], e["dtype"])
+                    not in NOT_WEIGHTS.get(name, set())]
 
         counter = OpCounter(base=built.args_bytes)
         with counter:
@@ -233,8 +297,7 @@ def test_no_model_shard_is_gathered_whole():
         dryrun_lib.make_fl_train_step = whole
         try:
             built = dryrun_lib.build_train(
-                cfg, ShapeConfig("t", 32, 8, "train"), mesh,
-                {"prune_block": BLOCK})
+                cfg, ShapeConfig("t", 32, 8, "train"), mesh, variant)
             counter = OpCounter(base=built.args_bytes)
             with counter:
                 built.fn()
@@ -246,15 +309,17 @@ def test_no_model_shard_is_gathered_whole():
         dist.destroy_process_group()
 
 
-def test_one_rank_model_dim_is_the_unsharded_step(inputs):
-    # a (1, 1) mesh of one gloo rank: the TP path (dense family) is bitwise
-    # the unsharded step, with the LTFL quantizer and with the int8 wire
+@pytest.mark.parametrize("name", ["granite", "olmoe", "deepseek"])
+def test_one_rank_model_dim_is_the_unsharded_step(inputs, name):
+    # a (1, 1) mesh of one gloo rank: the TP path (dense and MoE families)
+    # is bitwise the unsharded step, with the LTFL quantizer and with the
+    # int8 wire format
     import torch.distributed as dist
 
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.mesh import make_mesh
-    tree, tokens, _, uniforms = inputs["granite"]
-    _, model, params, batch = port("granite", tree, tokens)
+    tree, tokens, _, uniforms = inputs[name]
+    _, model, params, batch = port(name, tree, tokens)
     store = dist.HashStore()
     dist.init_process_group("gloo", store=store, rank=0, world_size=1)
     try:
@@ -269,14 +334,113 @@ def test_one_rank_model_dim_is_the_unsharded_step(inputs):
             def make(**extra):
                 if kw:
                     return make_fl_train_step(
-                        model, sgd(LR), C, prune_block=BLOCK,
+                        model, sgd(LR), C, prune_block=block(name),
                         int8_uniforms=source(uniforms), **kw, **extra)
-                return make_step(model, uniforms, **extra)
-            new, _, _, m = make(param_shardings=stacked)(
-                dparams, (), (), dbatch, controls(), SEED)
+                return make_step(model, uniforms, "ltfl", block(name),
+                                 **extra)
+            step = make(param_shardings=stacked)
+            new, _, _, m = step(dparams, (), (), dbatch, controls(), SEED)
             want, _, _, wm = make()(params, (), (), batch, controls(), SEED)
             assert torch.equal(m["loss"], wm["loss"])
             for k, v in want.items():
                 assert torch.equal(new[k].to_local(), v), k
     finally:
         dist.destroy_process_group()
+
+
+def _routing(monkeypatch, fn):
+    """``fn()``'s MoE routing: the least nonzero gap among each token's k
+    + 1 largest router probabilities, the tokens with an exact tie (and
+    whether each of those gives every expert the same probability), and
+    the assignments kept and made."""
+    from repro_torch.models import moe
+    seen = {"gap": math.inf, "tied": 0, "uniform": True, "kept": 0,
+            "made": 0}
+    route, masks = moe._route, moe._dispatch_masks
+
+    def recording_route(p, x, k, n_experts):
+        probs, top_w, top_i = route(p, x, k, n_experts)
+        top = torch.topk(probs, k + 1, dim=-1).values
+        gap = top[..., :-1] - top[..., 1:]
+        if bool((gap > 0).any()):
+            seen["gap"] = min(seen["gap"], float(gap[gap > 0].min()))
+        tied = (gap == 0).any(-1)
+        seen["tied"] += int(tied.sum())
+        spread = probs.amax(-1) - probs.amin(-1)
+        seen["uniform"] &= bool((spread[tied] == 0).all())
+        return probs, top_w, top_i
+
+    def recording_masks(top_w, top_i, *args):
+        dispatch, combine = masks(top_w, top_i, *args)
+        seen["kept"] += int(dispatch.sum())
+        seen["made"] += top_i.numel()
+        return dispatch, combine
+
+    monkeypatch.setattr(moe, "_route", recording_route)
+    monkeypatch.setattr(moe, "_dispatch_masks", recording_masks)
+    with torch.no_grad():
+        fn()
+    monkeypatch.undo()
+    return seen
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_moe_routing_has_no_near_ties(monkeypatch, inputs, name):
+    # the routing the TP runs compare: every client's forward on its
+    # pruned weights (the step's), the prefill and the decode steps; and
+    # olmoe's capacity drops assignments. Exact ties come only from
+    # tokens whose input is all zero (every expert alike: a pruned
+    # embedding row at a sequence's start), which every side routes by
+    # expert index
+    from repro_torch.core.pruning import prune_pytree
+    from repro_torch.models import params_from_numpy as from_numpy
+    tree, tokens, steps, _ = inputs[name]
+    cfg, model, params, batch = port(name, tree, tokens)
+    pruned, _ = prune_pytree(params, controls()["rho"], block=block(name))
+    for c in range(C):
+        seen = _routing(monkeypatch, lambda: model.loss(
+            {k: v[c] for k, v in pruned.items()},
+            {k: v[c] for k, v in batch.items()}))
+        assert seen["gap"] > TIE_GAP and seen["uniform"], (name, c, seen)
+        if name == "olmoe":
+            assert seen["kept"] < seen["made"], "no assignment was dropped"
+    serve = build_model(cfg, remat=False)
+    whole = {k: v.float() for k, v in from_numpy(tree).items()}
+
+    def prefill_and_decode():
+        _, pcache = serve.prefill(whole, {"tokens": batch["tokens"][0]})
+        cache = serve.init_cache(ROWS, SEQ + STEPS)
+        for k in cache:
+            cache[k][:, :, :SEQ] = pcache[k]
+        pos = torch.full((ROWS,), SEQ)
+        for t in steps:
+            _, cache = serve.decode_step(whole, torch.from_numpy(t).long(),
+                                         pos, cache)
+            pos = pos + 1
+    seen = _routing(monkeypatch, prefill_and_decode)
+    assert seen["gap"] > TIE_GAP and seen["uniform"], (name, seen)
+
+
+@pytest.mark.parametrize("name", ["phi-3-vision-4.2b", "rwkv6-7b",
+                                  "zamba2-2.7b", "whisper-medium"])
+def test_other_families_refuse_tensor_parallelism(name):
+    # the VLM, SSM, hybrid and encoder-decoder families compute on whole
+    # weights: asked for the TP step they raise, naming their family, and
+    # the VLM DecoderLM raises under a context of 'model' 4
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.core.ltfl_step import _tensor_parallel
+    from repro_torch.models import tensor_parallel as tp
+    cfg = reduce_for_smoke(get_arch(name))
+    model = build_model(cfg)
+    assert _tensor_parallel(model, None) is False
+    with pytest.raises(NotImplementedError, match=repr(cfg.family)):
+        _tensor_parallel(model, True)
+    if cfg.family == "vlm":
+        ctx = tp.TPContext(None, 1, 0, 4, {})
+        tokens = torch.zeros((1, 8), dtype=torch.long)
+        with tp.scope(ctx), pytest.raises(NotImplementedError,
+                                          match="'vlm'"):
+            model.loss(model.init(torch.Generator()),
+                       {"tokens": tokens, "labels": tokens,
+                        "image_embeds": torch.zeros(1, cfg.num_image_tokens,
+                                                    cfg.d_model)})

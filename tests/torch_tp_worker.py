@@ -1,7 +1,8 @@
-"""The rank program of ``test_torch_tensor_parallel.py``: the dense
-family's tensor-parallel step, prefill and decode on one rank of a (2, 4)
-gloo mesh. A module of its own, without jax, so that each spawned rank
-imports only the port."""
+"""The rank program of ``test_torch_tensor_parallel.py``: the dense and
+MoE families' tensor-parallel step, prefill and decode on one rank of a
+(2, 4) gloo mesh. A module of its own, without jax, so that each spawned
+rank imports only the port."""
+import dataclasses
 import os
 
 import torch
@@ -13,21 +14,57 @@ from repro_torch.models import build_model, params_from_numpy
 from repro_torch.optim import sgd
 
 C, ROWS, SEQ, BLOCK, LR, SEED, STEPS = 2, 4, 16, 64, 0.05, 11, 4
-CONFIGS = {"granite": ("granite-8b", dict(n_kv_heads=2)),
+# name: (arch, ArchConfig fields, MoEConfig fields); the MoE configs have
+# 8 experts at top 2, so 2 sit on each of the 4 'model' ranks
+CONFIGS = {"granite": ("granite-8b", dict(n_kv_heads=2), {}),
            "qwen": ("qwen1.5-32b", dict(n_heads=6, n_kv_heads=6,
-                                        head_dim=32))}
+                                        head_dim=32), {}),
+           # capacity 8 a group of 64 tokens: assignments are dropped
+           "olmoe": ("olmoe-1b-7b", {}, dict(num_experts=8, top_k=2,
+                                              capacity_factor=0.5)),
+           "deepseek": ("deepseek-v2-lite-16b", {},
+                        dict(num_experts=8, top_k=2)),
+           # 6 heads and 6 experts, which 'model' 4 does not split: wq,
+           # w_uk and w_uv cut heads (gathered, attended whole, split
+           # before wo), and the experts and router are whole
+           "deepseek_cut": ("deepseek-v2-lite-16b",
+                            dict(n_heads=6, n_kv_heads=6),
+                            dict(num_experts=6, top_k=2))}
+# olmoe's router (256, 8) is pruned by tiles of 8 (its 2-column shards
+# by sub-tiles, as the full-width router's 4 columns at block 32);
+# deepseek's, not tileable at 64, by magnitude
+BLOCKS = {"olmoe": 8}
 LAYOUTS = {"d_model": {}, "seq": {"act": "seq"},
            "whole": {"rules_override": {"act_embed": None}}}
 # (layout, uplink): the quantizer under the baseline layout; every layout
 # unquantized, where no stochastic level can flip
 CASES = [("d_model", "ltfl")] + [(layout, "none") for layout in LAYOUTS]
+# the fallbacks' config runs the layout that splits the most
+ONLY = {"deepseek_cut": [("seq", "none")]}
 CONTROLS = {"rho": [0.25, 0.5], "delta": [3.0, 5.0],
             "weights": [40.0, 60.0], "drop_prob": [0.0, 0.0]}
 
 
+def reduced(cfg, name):
+    """``reduce_for_smoke(cfg)`` with ``name``'s fields (either side's
+    config classes)."""
+    _, replace, moe = CONFIGS[name]
+    cfg = cfg.replace(**replace)
+    if moe:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **moe))
+    return cfg
+
+
 def port_config(name):
-    arch, replace = CONFIGS[name]
-    return reduce_for_smoke(get_arch(arch)).replace(**replace)
+    return reduced(reduce_for_smoke(get_arch(CONFIGS[name][0])), name)
+
+
+def block(name):
+    return BLOCKS.get(name, BLOCK)
+
+
+def cases(name):
+    return ONLY.get(name, CASES)
 
 
 def controls():
@@ -53,10 +90,10 @@ def port(name, tree, tokens):
     return cfg, model, params, {"tokens": t, "labels": t}
 
 
-def make_step(model, uniforms, uplink="ltfl", **kw):
+def make_step(model, uniforms, uplink="ltfl", prune_block=BLOCK, **kw):
     comp = (ltfl_quantizer(uniforms=source(uniforms)) if uplink == "ltfl"
             else "none")
-    return make_fl_train_step(model, sgd(LR), C, prune_block=BLOCK,
+    return make_fl_train_step(model, sgd(LR), C, prune_block=prune_block,
                               compressor=comp, **kw)
 
 
@@ -89,10 +126,10 @@ def run_rank(rank, port_no, out_dir):
             bsh = sh.batch_shardings(mesh, base, batch, leading="client")
             dparams = {k: sh.distribute(v, psh[k]) for k, v in params.items()}
             dbatch = {k: sh.distribute(v, bsh[k]) for k, v in batch.items()}
-            for layout, uplink in CASES:
+            for layout, uplink in cases(name):
                 rules = dryrun_lib._apply_variant_rules(
                     dict(base), LAYOUTS[layout], cfg)
-                step = make_step(model, uniforms, uplink,
+                step = make_step(model, uniforms, uplink, block(name),
                                  param_shardings=stacked,
                                  gather_shardings=gather)
                 with logical_rule_scope(rules, mesh):
@@ -109,19 +146,21 @@ def run_rank(rank, port_no, out_dir):
             with torch.inference_mode(), logical_rule_scope(base, mesh):
                 logits, pcache = model.prefill(local, {"tokens":
                                                        batch["tokens"][0]})
-                split = {}
+                whole = {}
                 for k, v in cache.items():
                     # every rank holds all ROWS rows: 'model' splits only
+                    # (MLA's latent cache not at all)
                     spec = tuple(None if e == "data" else e
                                  for e in csh[k].spec)
-                    split[k] = spec.index("model") - len(spec)
                     cache[k] = sh.local_slice(
                         v, sh.NamedSharding(mesh, spec)).clone()
                     cache[k][:, :, :SEQ] = pcache[k]
+                    whole[k] = (pcache[k] if "model" not in spec else
+                                tp.all_gather(pcache[k], ctx,
+                                              spec.index("model")
+                                              - len(spec)))
                 got = {"prefill": tp.all_gather(logits, ctx, -1),
-                       "cache": {k: tp.all_gather(v, ctx, split[k])
-                                 for k, v in pcache.items()},
-                       "decode": []}
+                       "cache": whole, "decode": []}
                 pos = torch.full((ROWS,), SEQ)
                 for t in steps:
                     lg, cache = model.decode_step(
