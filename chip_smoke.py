@@ -294,12 +294,15 @@ Phases; any failure exits non-zero before the result lines:
 
 29. the launch tooling (ROADMAP A8): (a) the dry run
    (``python -m repro_torch.launch.dryrun``, each pair in its own
-   process under a fake process group, all started together at the
-   phase's start): granite-8b x train_4k on the production (16, 16) and
+   process under a fake process group at the lowest scheduling
+   priority, all started together with phase 28, with phase 30's): granite-8b x train_4k on the production (16, 16) and
    (2, 16, 16) meshes and the reference's three CI pairs on the (2, 4)
    test mesh (granite-8b x decode_32k, whisper-medium x prefill_32k,
-   granite-8b x train_4k as a scanned segment of 2 rounds); each record
-   printed with ``fits_hbm`` against 80 GB; (b) the sharded step on its
+   granite-8b x train_4k as a scanned segment of 2 rounds), and the
+   recurrences' shapes on it (rwkv6-7b x prefill_32k, zamba2-2.7b x
+   train_4k: each scan of 32,768 or 4,096 steps counted from four of
+   them, ``launch.op_analysis.OpCounter.scan``), with their seconds;
+   each record printed with ``fits_hbm`` against 80 GB; (b) the sharded step on its
    whole-weight path (``make_fl_train_step(param_shardings=,
    gather_shardings=, tensor_parallel=False)``, the path of every family
    but the dense one) on an
@@ -321,27 +324,33 @@ Phases; any failure exits non-zero before the result lines:
    (the forward alone) bitwise, the later losses, the first step's
    aggregate norm and the weights after the last step within
    ``REMAT_*_REL`` of each other, both peaks and both step times.
-30. tensor parallelism over 'model' for the dense and MoE families
-   (``models.tensor_parallel``): (a) the sharded step on its tensor-
-   parallel path (those families' default) on an NCCL world of one and
-   a (1, 1) mesh, 3 steps with SGD and 3 with the int8 wire format each:
-   phase 9's run (granite-8b), then olmoe-1b-7b (phase 18's cut: 2
-   layers, 1,045,178,368 parameters) and deepseek-v2-lite-16b (published
-   widths, 2 layers: the dense prefix layer and one MoE layer,
-   1,085,287,424 parameters) at the launcher's defaults (``TP_MOE``):
-   losses and weights bitwise the plain step's, the SGD losses bitwise
-   phase 9's (granite) and phase 18's (olmoe), launches a step 12 / 9 /
-   18, olmoe 13 / 10 / 20, deepseek 29 / 22 / 44 (0 B1 under int8),
-   each step's time beside the plain step's and the whole-weight sharded
-   step's (``tensor_parallel=False``, also bitwise); (b) meta dry runs of
-   granite-8b x train_4k on (16, 16) and (2, 16, 16) under {"act":
-   "seq"} and of granite-8b x prefill_32k and x decode_32k on (16, 16);
-   of olmoe-1b-7b x train_4k on (16, 16) and (2, 16, 16); of
-   deepseek-v2-lite-16b x train_4k on (16, 16) under {} and {"act":
-   "seq"}, and x prefill_32k and x decode_32k on (16, 16); started with
-   phase 29's, each printed beside the whole-weight step's record of the
-   same pair (``WHOLE_WEIGHT_RECORDS``), with phase 29's granite
-   baseline train records. No 'model' axis of more than one rank runs on
+30. tensor parallelism over 'model' for the dense, MoE, VLM and RWKV6
+   families (``models.tensor_parallel``): (a) the sharded step on its
+   tensor-parallel path (those families' default) on an NCCL world of
+   one and a (1, 1) mesh, 3 steps with SGD and 3 with the int8 wire
+   format each: phase 9's run (granite-8b), then olmoe-1b-7b (phase 18's
+   cut: 2 layers, 1,045,178,368 parameters) and deepseek-v2-lite-16b
+   (published widths, 2 layers: the dense prefix layer and one MoE
+   layer, 1,085,287,424 parameters) at the launcher's defaults
+   (``TP_MOE``), then phi-3-vision-4.2b (published widths, 2 layers,
+   423,508,992 parameters) and rwkv6-7b (phase 18's cut: 2 layers,
+   974,221,312 parameters; ``TP_VLM_SSM``): losses and weights bitwise
+   the plain step's, the SGD losses bitwise phase 9's (granite) and
+   phase 18's (olmoe, rwkv6), launches a step 12 / 9 / 18, olmoe 13 /
+   10 / 20, deepseek 29 / 22 / 44, phi 12 / 9 / 18, rwkv6 20 / 13 / 26
+   (0 B1 under int8), each step's time beside the plain step's and the
+   whole-weight sharded step's (``tensor_parallel=False``, also
+   bitwise); (b) meta dry runs of granite-8b x train_4k on (16, 16) and
+   (2, 16, 16) under {"act": "seq"} and of granite-8b x prefill_32k and
+   x decode_32k on (16, 16); of olmoe-1b-7b x train_4k on (16, 16) and
+   (2, 16, 16); of deepseek-v2-lite-16b x train_4k on (16, 16) under {}
+   and {"act": "seq"}, and x prefill_32k and x decode_32k on (16, 16);
+   of phi-3-vision-4.2b x train_4k, x prefill_32k and x decode_32k and
+   of rwkv6-7b x train_4k under {} and {"act": "seq"}, x prefill_32k and
+   x decode_32k on (16, 16); started with phase 29's, each printed
+   beside the whole-weight step's record of the same pair
+   (``WHOLE_WEIGHT_RECORDS``), with phase 29's granite baseline train
+   records. No 'model' axis of more than one rank runs on
    the one card (NCCL puts no two ranks on a card; gloo's all-gather of
    CUDA tensors ends the process): tests/test_torch_tensor_parallel.py
    runs eight on the CPU.
@@ -372,7 +381,9 @@ calls (``static_bits_*``). The B1-B3 rows carry phase 28's launches a
 step under the int8 wire format, momentum and AdamW
 (``host_leftover_launches_per_step``), and phase 30's on the TP step
 (``tensor_parallel_step_launches_per_step`` for granite-8b,
-``moe_tensor_parallel_step_launches_per_step`` by MoE config). The
+``moe_tensor_parallel_step_launches_per_step`` by MoE config,
+``vlm_ssm_tensor_parallel_step_launches_per_step`` for phi-3-vision-4.2b
+and rwkv6-7b). The
 ``block_sparse_matmul`` row also carries its main-path launches by path
 (``path``), the paths of phase 11's products (``check_paths``), its rate
 on live work (``kernel_tflops``) and the rho sweep.
@@ -3832,6 +3843,9 @@ DRYRUN_PAIRS = (
     ("granite-8b", "decode_32k", ["--test-mesh"], "{}"),
     ("whisper-medium", "prefill_32k", ["--test-mesh"], "{}"),
     ("granite-8b", "train_4k", ["--test-mesh"], '{"scan": 2}'),
+    # the recurrences over time (4,096 and 32,768 steps a layer)
+    ("rwkv6-7b", "prefill_32k", ["--test-mesh"], "{}"),
+    ("zamba2-2.7b", "train_4k", ["--test-mesh"], "{}"),
 )
 LAUNCH_STEPS = 3                        # phase 29 (b): steps a variant
 # phase 29 (d), remat on against off (relative), about ten times what
@@ -3847,7 +3861,8 @@ REMAT_WEIGHT_REL = 2e-3
 
 def _start_dryruns(out_dir: Path, pairs=DRYRUN_PAIRS):
     """Dry runs of ``pairs`` (phase 29 (a)'s by default), each in its own
-    process, started now."""
+    process at the lowest scheduling priority (so that the phases timed
+    meanwhile keep their core), started now."""
     import os
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     procs = []
@@ -3857,7 +3872,27 @@ def _start_dryruns(out_dir: Path, pairs=DRYRUN_PAIRS):
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
              arch, "--shape", shape, *flags, "--variant", variant,
              "--out", str(d)], env=env, cwd=HERE, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)))
+            stderr=subprocess.PIPE, text=True,
+            preexec_fn=lambda: os.nice(19))))
+    return procs
+
+
+def start_all_dryruns(more_pairs=None):
+    """Phase 29's dry runs and ``more_pairs`` (phase 30's
+    ``TP_DRYRUN_PAIRS`` by default), started now: (procs, more procs) for
+    ``phase_launch_tooling``'s ``started``."""
+    import atexit
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="dryrun_torch_"))
+    procs = (_start_dryruns(tmp), _start_dryruns(
+        tmp / "more", TP_DRYRUN_PAIRS if more_pairs is None else more_pairs))
+
+    def stop():                     # a failed phase leaves none running
+        for _, p in procs[0] + procs[1]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    atexit.register(stop)
     return procs
 
 
@@ -3902,15 +3937,15 @@ def _step_launches(fn):
     return out, {k: v for m in modules for k, v in m.LAUNCHES.items()}
 
 
-def phase_launch_tooling(dc_records, dc_peak, more_pairs=()):
+def phase_launch_tooling(dc_records, dc_peak, more_pairs=(), started=None):
     """Phase 29: the dry run, the sharded step on a (1, 1) mesh against
-    the plain step, the dry run against the card, and remat. The dry runs
-    of ``more_pairs`` (phase 30's) start with phase 29's; their processes
-    come back unfinished under "more_procs"."""
+    the plain step, the dry run against the card, and remat. Its dry runs
+    and phase 30's are ``started`` (``start_all_dryruns``'s) earlier, or,
+    without it, phase 29's and those of ``more_pairs`` start now; the
+    later ones' processes come back unfinished under "more_procs"."""
     import gc
     import os
     import socket
-    import tempfile
     import torch
     import torch.distributed as dist
     from torch.utils.flop_counter import FlopCounterMode
@@ -3923,9 +3958,7 @@ def phase_launch_tooling(dc_records, dc_peak, more_pairs=()):
     from repro_torch.models import build_model
     from repro_torch.optim import sgd
     t0 = time.time()
-    tmp = Path(tempfile.mkdtemp(prefix="dryrun_torch_"))
-    procs = _start_dryruns(tmp)
-    more = _start_dryruns(tmp / "more", more_pairs)
+    procs, more = started or start_all_dryruns(more_pairs)
     # (b) the sharded step on an NCCL world of one
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -4104,6 +4137,12 @@ def phase_launch_tooling(dc_records, dc_peak, more_pairs=()):
         f"{LAUNCH_STEPS - 1} rel L2 {w_rel!r}")
     torch.cuda.empty_cache()
     records = _finish_dryruns(procs)
+    for rec in records:
+        if rec["arch"] in ("rwkv6-7b", "zamba2-2.7b"):
+            log(f"[launch] C1: {rec['arch']} x {rec['shape']} on "
+                f"{rec['mesh']} finished, the meta run "
+                f"{rec['compile_seconds']!r} s (each scan counted from "
+                f"four of its steps)")
     log(f"[launch] phase 29 in {time.time() - t0:.1f} s")
     return {"steps": result, "dryrun": records, "more_procs": more,
             "flops": int(counts["flops"]),
@@ -4120,6 +4159,16 @@ TP_MOE = {
                              {"stochastic_quant": 29, "block_norms": 22,
                               "apply_block_mask": 44}),
 }
+# phase 30 (a): the VLM's and RWKV6's TP step, as TP_MOE (phi-3-vision-
+# 4.2b at published widths cut to 2 layers, rwkv6-7b as phase 18 cuts
+# it); tests/test_torch_datacenter_moe.py holds them against the
+# reference's tree
+TP_VLM_SSM = {
+    "phi-3-vision-4.2b": ({"n_layers": 2}, 423_508_992,
+                          {"stochastic_quant": 12, "block_norms": 9,
+                           "apply_block_mask": 18}),
+    "rwkv6-7b": DC_FAMILIES["rwkv6-7b"],
+}
 # phase 30 (b): the tensor-parallel dry runs, started with phase 29's
 TP_DRYRUN_PAIRS = (
     ("granite-8b", "train_4k", [], '{"act": "seq"}'),
@@ -4132,6 +4181,13 @@ TP_DRYRUN_PAIRS = (
     ("deepseek-v2-lite-16b", "train_4k", [], '{"act": "seq"}'),
     ("deepseek-v2-lite-16b", "prefill_32k", [], "{}"),
     ("deepseek-v2-lite-16b", "decode_32k", [], "{}"),
+    ("phi-3-vision-4.2b", "train_4k", [], "{}"),
+    ("phi-3-vision-4.2b", "prefill_32k", [], "{}"),
+    ("phi-3-vision-4.2b", "decode_32k", [], "{}"),
+    ("rwkv6-7b", "train_4k", [], "{}"),
+    ("rwkv6-7b", "train_4k", [], '{"act": "seq"}'),
+    ("rwkv6-7b", "prefill_32k", [], "{}"),
+    ("rwkv6-7b", "decode_32k", [], "{}"),
 )
 # the same pairs on the whole-weight path (the dry run as it stood before
 # tensor parallelism for each family; meta records, not measurements):
@@ -4155,6 +4211,20 @@ WHOLE_WEIGHT_RECORDS = {
         52474647552, 14.162098884448955, 20, 29396090880),
     ("deepseek-v2-lite-16b", "decode_32k", "data16xmodel16"): (
         60628112448, 0.10873158538268657, 20, 29396090880),
+    # the VLM and RWKV6 with tensor_parallel.FAMILIES = ("dense", "moe"),
+    # each recurrence counted from four steps a scan
+    ("phi-3-vision-4.2b", "train_4k", "data16xmodel16"): (
+        28455029260, 1.3816062589647762, 84, 15225869265),
+    ("phi-3-vision-4.2b", "prefill_32k", "data16xmodel16"): (
+        40265789440, 48.42369790448716, 9, 7164149760),
+    ("phi-3-vision-4.2b", "decode_32k", "data16xmodel16"): (
+        215940362304, 0.2631404131247761, 9, 7164149760),
+    ("rwkv6-7b", "train_4k", "data16xmodel16"): (
+        48783749388, 45.08767311320836, 119, 30085263900),
+    ("rwkv6-7b", "prefill_32k", "data16xmodel16"): (
+        28467609600, 9.188304738273432, 11, 14093107200),
+    ("rwkv6-7b", "decode_32k", "data16xmodel16"): (
+        18464669760, 0.02823164032955224, 11, 14093107200),
 }
 
 
@@ -4301,9 +4371,10 @@ def _tp_steps(mesh, args, arch, want, earlier, n_want=None,
 def phase_tensor_parallel(dc_records, dry_records, procs,
                           family_records, profile_dir=None):
     """Phase 30: the tensor-parallel step on (1, 1) against the plain
-    step, for the dense family (phase 9's run) and the MoE family
-    (``TP_MOE``; olmoe's losses against phase 18's ``family_records``),
-    and the TP dry runs. A real 'model' axis needs two ranks: NCCL puts
+    step, for the dense family (phase 9's run), the MoE family
+    (``TP_MOE``), the VLM and RWKV6 (``TP_VLM_SSM``; olmoe's and rwkv6's
+    losses against phase 18's ``family_records``), and the TP dry
+    runs. A real 'model' axis needs two ranks: NCCL puts
     no two on one card, and gloo's all-gather of CUDA tensors ends the
     process (PERF.md §7), so the card runs none; the CPU tests run
     eight."""
@@ -4327,7 +4398,7 @@ def phase_tensor_parallel(dc_records, dry_records, procs,
     result = {"granite-8b": _tp_steps(
         mesh, args, dc_arch(), {"stochastic_quant": 12, "block_norms": 9,
                                 "apply_block_mask": 18}, dc_records)}
-    for name, (cut, n_want, want) in TP_MOE.items():
+    for name, (cut, n_want, want) in {**TP_MOE, **TP_VLM_SSM}.items():
         result[name] = _tp_steps(mesh, args, get_arch(name).replace(**cut),
                                  want, family_records.get(name), n_want,
                                  profile_dir)
@@ -4446,12 +4517,14 @@ def main() -> None:
     registry = phase_registry(asy["deadline_s"])
     stamp("27")
     # the host leftovers: int8 wire format, momentum / AdamW, static bits
+    # phases 29-30's dry runs (CPU only) run beside phases 28-29
+    dryruns = start_all_dryruns()
     host = phase_host_leftovers(mats, dc_records, dc_peak)
     stamp("28")
     # the launch tooling: dry run, the sharded step, remat
-    tooling = phase_launch_tooling(dc_records, dc_peak, TP_DRYRUN_PAIRS)
+    tooling = phase_launch_tooling(dc_records, dc_peak, started=dryruns)
     stamp("29")
-    # tensor parallelism for the dense and MoE families
+    # tensor parallelism for the dense, MoE, VLM and RWKV6 families
     tensor = phase_tensor_parallel(dc_records, tooling["dryrun"],
                                    tooling.pop("more_procs"),
                                    family_records, profile_dir)
@@ -4478,6 +4551,9 @@ def main() -> None:
 
     def moe_tp_launches(key):
         return {name: tp_launches(key, name) for name in TP_MOE}
+
+    def vlm_ssm_tp_launches(key):
+        return {name: tp_launches(key, name) for name in TP_VLM_SSM}
 
     def block_row(name, key, launches, err, extra):
         return {
@@ -4507,6 +4583,8 @@ def main() -> None:
             "tensor_parallel_step_launches_per_step": tp_launches(name),
             "moe_tensor_parallel_step_launches_per_step":
                 moe_tp_launches(name),
+            "vlm_ssm_tensor_parallel_step_launches_per_step":
+                vlm_ssm_tp_launches(name),
             **extra,
         }
 
@@ -4553,6 +4631,8 @@ def main() -> None:
             tp_launches("stochastic_quant"),
         "moe_tensor_parallel_step_launches_per_step":
             moe_tp_launches("stochastic_quant"),
+        "vlm_ssm_tensor_parallel_step_launches_per_step":
+            vlm_ssm_tp_launches("stochastic_quant"),
     }, block_row("block_norms", "norms", dc_launches["block_norms"],
                  norm_err, {}),
         block_row("apply_block_mask", "mask",

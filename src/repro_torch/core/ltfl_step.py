@@ -288,9 +288,9 @@ def make_fl_train_step(model, optimizer: Optimizer, n_clients: int, *,
 
 
 def _tensor_parallel(model, asked: Optional[bool]) -> bool:
-    """Whether the sharded step computes on weight shards: the dense and
-    MoE families do (``models.tensor_parallel.FAMILIES``), the others
-    compute whole weights."""
+    """Whether the sharded step computes on weight shards: the dense,
+    MoE, VLM and RWKV6 families do (``models.tensor_parallel.FAMILIES``),
+    the hybrid and encoder-decoder ones compute whole weights."""
     from repro_torch.models.tensor_parallel import FAMILIES
     cfg = getattr(model, "cfg", None)
     family = getattr(cfg, "family", None)
@@ -298,7 +298,7 @@ def _tensor_parallel(model, asked: Optional[bool]) -> bool:
     if asked and not tp:
         raise NotImplementedError(
             f"{getattr(cfg, 'name', model)}: tensor parallelism covers the "
-            f"{' and '.join(FAMILIES)} families, not {family!r}")
+            f"{', '.join(FAMILIES)} families, not {family!r}")
     return tp if asked is None else bool(asked)
 
 

@@ -17,7 +17,7 @@ axes (the mesh dims of each spec's leading entry) and, for the rest of
 each leaf, the parameters' own layout: the params come in as DTensors
 placed that way.
 
-The dense and MoE families (``tensor_parallel``, chosen by
+The dense, MoE, VLM and RWKV6 families (``tensor_parallel``, chosen by
 ``make_fl_train_step`` from the model's family) compute on their weight
 shards (``models.tensor_parallel``): the forward and backward passes run
 with each leaf's 'model' shard as it rests, and the collectives over
@@ -50,7 +50,7 @@ leading dim, which cuts no tile; the router's (D, E) columns (64 / 16 =
 On a 'model' dim of one rank the model computes as on one device, and
 the step is bitwise the unsharded step.
 
-The other families (``tensor_parallel`` False: VLM, SSM, hybrid,
+The other families (``tensor_parallel`` False: hybrid and
 encoder-decoder) compute their clients' gradients with whole weights,
 so
 

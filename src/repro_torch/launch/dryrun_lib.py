@@ -21,8 +21,8 @@ dense tensor-core peak, HBM3 bandwidth, memory, NVLink 4 bandwidth in
 each direction); they are datasheet figures, not measurements.
 
 What the port's steps do on a mesh. Parameters rest sharded by the rule
-table and are pruned on their shards (``core.sharded_step``). The dense
-and MoE families compute on their 'model' shards
+table and are pruned on their shards (``core.sharded_step``). The dense,
+MoE, VLM and RWKV6 families compute on their 'model' shards
 (``models.tensor_parallel.FAMILIES``):
 the train step's clients sit on their mesh axes and each client's rows
 split over the remaining dims but 'model' that divide them; prefill and
@@ -31,9 +31,11 @@ decode split the batch over its 'batch' axes and every other dim but
 a weight also sharded over 'data' under fsdp is gathered over 'data'
 only), and hold the decode cache as the rule table splits it (over kv
 heads, or over head_dim where the head count does not divide; MLA's
-latent cache whole). The residual stream follows the rules' activation
+latent cache whole; RWKV6's state over heads, its token-shift states as
+the (B, D) stream). The residual stream follows the rules' activation
 axes: over d_model by default, over the sequence under ``{"act":
-"seq"}``, whole with 'act_embed' None. The other families compute on
+"seq"}``, whole with 'act_embed' None. The hybrid and encoder-decoder
+families compute on
 whole weights: the pruned copies all-gathered, each client's rows also
 split over 'model', prefill and decode on ``full_tensor()`` weights,
 the cache following the batch; for them the activation variants
@@ -155,7 +157,7 @@ def _apply_variant_rules(rules, variant, arch: ArchConfig):
         raise ValueError(
             f"variant {variant}: activation layouts {act} need tensor "
             f"parallelism, which the port has for the "
-            f"{' and '.join(tp.FAMILIES)} families, not {arch.name}'s "
+            f"{', '.join(tp.FAMILIES)} families, not {arch.name}'s "
             f"{arch.family!r}")
     if "act" in variant:
         if variant["act"] != "seq":

@@ -38,6 +38,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 Tree = Dict[str, torch.Tensor]
 
@@ -237,7 +238,22 @@ def time_scan(step: Callable, carry, n: int):
     under ``torch.inference_mode()``) each y_t is written into one tensor
     allocated at the first step; under autograd (training, the datacenter
     step's ``grad`` and ``vmap``) the outputs are stacked at the end, the
-    form both take. Either way the values are the same."""
+    form both take. Either way the values are the same.
+
+    On meta tensors under a dispatch mode that counts a scan itself (the
+    dry run's ``launch.op_analysis.OpCounter``, through its ``scan``),
+    the mode runs it: four steps, one of them counted n - 3 times, as the
+    reference's HLO analysis counts a ``while`` body once times its trip
+    count."""
+    if n > 4 and carry.device.type == "meta":
+        for mode in reversed(_get_current_dispatch_mode_stack()):
+            if hasattr(mode, "scan"):
+                return mode.scan(step, carry, n)
+    return _loop(step, carry, n)
+
+
+def _loop(step: Callable, carry, n: int):
+    """``time_scan`` step by step."""
     if torch.is_grad_enabled():
         ys = []
         for t in range(n):

@@ -32,7 +32,7 @@ given, in place, and returns that same cache (the reference returns an
 updated copy); with a sliding window the cache is a ring buffer.
 
 Under a tensor-parallel context (``models.tensor_parallel``; the
-``DecoderLM`` of the dense and MoE families opens it) the embedding is vocab-parallel, wq /
+``DecoderLM`` opens it) the embedding is vocab-parallel, wq /
 wk / wv (and their biases), wi, wi_gate and wi_up are column-parallel,
 both ``wo`` are row-parallel and ``lm_head`` is column-parallel over the
 vocabulary: each function computes on the rank's shards, which it reads
@@ -47,7 +47,6 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import tensor_parallel as tp
@@ -83,22 +82,21 @@ def embedding_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     return s
 
 
-def embed_tokens(cfg: ArchConfig, p: Tree, tokens: torch.Tensor
-                 ) -> torch.Tensor:
-    if tp.active() is not None:
-        x = tp.embed(p["tok"], tokens, cfg.vocab_size)
-    else:
-        x = F.embedding(tokens, p["tok"])
+def embed_tokens(cfg: ArchConfig, p: Tree, tokens: torch.Tensor,
+                 prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The token embeddings (B, S, D), after the rows ``prefix`` (B, P, D)
+    when given; under tensor parallelism in the residual stream's layout
+    (``tensor_parallel.embed``)."""
+    x = tp.embed(p["tok"], tokens, cfg.vocab_size, prefix)
     return shard_hint(x, ("batch", "act_seq", "act_embed"))
 
 
-def lm_head(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
-    """Logits; under tensor parallelism the rank's slice of the vocabulary
-    when the head is vocab-parallel."""
+def lm_head(cfg: ArchConfig, p: Tree, x) -> torch.Tensor:
+    """Logits of ``x`` (the final norm's output, or under tensor
+    parallelism the ``tp.Enter`` of the stream); the rank's slice of the
+    vocabulary when the head is vocab-parallel."""
     w = p["tok"].t() if cfg.tie_embeddings else p["head"]
-    if tp.active() is not None:
-        return tp.column(_entered(x), w, None, cfg.vocab_size)[0]
-    return x @ w
+    return tp.column(_entered(x), w, None, cfg.vocab_size)[0]
 
 
 # --------------------------------------------------------------------------- #

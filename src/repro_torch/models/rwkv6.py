@@ -31,6 +31,15 @@ The cache is the stacked recurrent state, O(1) in the sequence:
 it is given and returns that same dict (a leaf whose dtype the step's
 output does not share is replaced by a new one of the output's dtype, as
 the reference's scan stacks its outputs; the step reads the old one).
+
+Tensor parallelism (``models.tensor_parallel``, whose module docstring
+gives the layout): under a context with a 'model' dim of more than one
+rank the layers compute on the rank's heads and d_ff columns, each
+block's input entering as a ``tp.Enter`` of the residual stream; the
+logits are the rank's vocabulary slice, the loss the vocab-parallel
+cross-entropy, and the cache the rank's part (the state over its heads,
+the token-shift states as the (B, D) stream). One body serves both
+cases: outside a context every helper is the identity.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.common import (
     ParamSpec,
     cross_entropy_loss,
@@ -56,7 +66,12 @@ from repro_torch.models.common import (
     unstack,
 )
 from repro_torch.models.convert import in_leaf_order
-from repro_torch.models.layers import embed_tokens, embedding_specs, lm_head
+from repro_torch.models.layers import (
+    _entered,
+    embed_tokens,
+    embedding_specs,
+    lm_head,
+)
 
 Tree = Dict[str, torch.Tensor]
 DECAY_LORA = 64
@@ -112,11 +127,62 @@ def _shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
 
 
-def _decay(p: Tree, x: torch.Tensor) -> torch.Tensor:
+def _mixer(xe: "tp.Enter", shifted, mu: torch.Tensor):
+    """``mix(i, sharded)``: the token shift ``h + (shifted(h) - h) *
+    mu[i]`` of the block input h for a column-parallel consumer
+    (``sharded``: h is ``tp.Enter.part`` and ``mu`` passes ``tp.copy_in``,
+    since the rank's columns give a part of their gradients) or a whole
+    one (h whole); ``shifted(h)`` is computed once for each h."""
+    done = {}
+
+    def mix(i: int, sharded: bool) -> torch.Tensor:
+        h = xe.part() if sharded else xe.whole()
+        if id(h) not in done:
+            done[id(h)] = (h, shifted(h))
+        m = tp.copy_in(mu[i]) if sharded else mu[i]
+        return h + (done[id(h)][1] - h) * m
+    return mix
+
+
+def _decay(p: Tree, x: torch.Tensor, sharded: bool = False
+           ) -> torch.Tensor:
     """Data-dependent decay in (0, 1): exp(-exp(w0 + tanh(x A) B)), the
-    sum in the parameters' dtype, the exponentials in float32."""
-    loraw = torch.tanh(x @ p["wa"]) @ p["wb"]
-    return torch.exp(-torch.exp((p["w0"] + loraw).to(torch.float32)))
+    sum in the parameters' dtype, the exponentials in float32; with
+    ``sharded`` the rank's heads' (w0 and B's columns split as the heads
+    are, A's gradient a part)."""
+    wa, wb, w0 = p["wa"], p["wb"], p["w0"]
+    if sharded:
+        wa, wb, w0 = tp.copy_in(wa), tp.split(wb, -1), tp.split(w0, -1)
+    loraw = torch.tanh(x @ wa) @ wb
+    return torch.exp(-torch.exp((w0 + loraw).to(torch.float32)))
+
+
+def _heads(cfg: ArchConfig, p: Tree) -> Tuple[int, bool]:
+    """The number of heads whose r, k, v and g columns (and ``wo`` rows)
+    this rank holds, and whether they are its slice of the heads (under
+    tensor parallelism; all of them otherwise)."""
+    hd, d = cfg.head_dim, cfg.d_model
+    width = p["wr"].shape[-1]
+    if any(p[k].shape[-1] != width for k in ("wk", "wv", "wg")) \
+            or p["wo"].shape[-2] != width:
+        raise NotImplementedError(
+            f"{cfg.name}: the time mix's wr, wk, wv, wg and wo laid out "
+            "apart")
+    if width % hd:
+        raise NotImplementedError(
+            f"{cfg.name}: the 'model' shards cut a head ({width} of "
+            f"{d} features, heads of {hd})")
+    return width // hd, width != d
+
+
+def _own_u(cfg: ArchConfig, u: torch.Tensor, n: int) -> torch.Tensor:
+    """The bonus ``u`` of the rank's ``n`` heads (as float32)."""
+    if u.shape[0] != n:
+        u = tp.split(u, -2)
+    if tuple(u.shape) != (n, cfg.head_dim):
+        raise NotImplementedError(
+            f"{cfg.name}: u {tuple(u.shape)} is not laid out as the heads")
+    return u.to(torch.float32)
 
 
 def _chunked_recurrence(rt, kt, vt, wt, u, state):
@@ -163,26 +229,45 @@ def _chunked_recurrence(rt, kt, vt, wt, u, state):
     return state, os_.transpose(0, 1).reshape(B, S, H, K)
 
 
-def time_mix_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
-                 prev_x: torch.Tensor, state: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full-sequence time mix. x (B,S,D); prev_x (B,D) the last token
-    before the sequence; state (B,H,hd,hd). Returns (out (B,S,D), the
-    new prev_x, the new state)."""
-    B, S, D = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
-    xs = _shift(x, prev_x)
-    mu = p["mu"]
-    xr = x + (xs - x) * mu[0]
-    xk = x + (xs - x) * mu[1]
-    xv = x + (xs - x) * mu[2]
-    xw = x + (xs - x) * mu[3]
-    r = (xr @ p["wr"]).reshape(B, S, H, hd).to(torch.float32)
-    k = (xk @ p["wk"]).reshape(B, S, H, hd).to(torch.float32)
-    v = (xv @ p["wv"]).reshape(B, S, H, hd).to(torch.float32)
+def _time_mix_inputs(cfg: ArchConfig, p: Tree, xe: "tp.Enter", shifted):
+    """The time mix's r, k, v (float32, (..., H, hd)), gate g, decay w
+    (float32 in (0, 1)) and bonus u over the rank's H heads, the block
+    input h they read and whether the heads are the rank's slice.
+    ``shifted(h)`` is the token-shifted input."""
+    H, sharded = _heads(cfg, p)
+    mix = _mixer(xe, shifted, p["mu"])
+    xr, xk, xv, xw = (mix(i, sharded) for i in range(4))
+    h = xe.part() if sharded else xe.whole()
+    heads = tuple(h.shape[:-1]) + (H, cfg.head_dim)
+    r = (xr @ p["wr"]).reshape(heads).to(torch.float32)
+    k = (xk @ p["wk"]).reshape(heads).to(torch.float32)
+    v = (xv @ p["wv"]).reshape(heads).to(torch.float32)
     g = F.silu(xv @ p["wg"])
-    w = _decay(p, xw).reshape(B, S, H, hd)                     # f32 in (0,1)
-    u = p["u"].to(torch.float32)
+    w = _decay(p, xw, sharded).reshape(heads)                 # f32 in (0,1)
+    return r, k, v, g, w, _own_u(cfg, p["u"], H), h, sharded
+
+
+def _time_mix_out(cfg: ArchConfig, p: Tree, o: torch.Tensor, g, h,
+                  sharded) -> torch.Tensor:
+    """``(ln_x(o) * g) @ wo`` back in the residual stream: o (..., H, hd)
+    over the rank's heads, in the block input h's dtype, normalized over
+    all heads."""
+    o = o.reshape(tuple(o.shape[:-2]) + (-1,)).to(h.dtype)
+    o = tp.rms_norm(o, p["ln_x"], cfg.d_model) * g
+    return tp.row(o, p["wo"], cfg.d_model, sharded)
+
+
+def time_mix_seq(cfg: ArchConfig, p: Tree, x, prev_x: torch.Tensor,
+                 state: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-sequence time mix. x (B,S,D) the block input (under tensor
+    parallelism the ``tp.Enter`` of the stream: the whole sequence is
+    read); prev_x (B,D) the last token before the sequence; state
+    (B,H,hd,hd) over the rank's heads. Returns (out (B,S,D) in the
+    stream's layout, the new prev_x (whole), the new state)."""
+    r, k, v, g, w, u, h, sharded = _time_mix_inputs(
+        cfg, p, _entered(x), lambda t: _shift(t, prev_x))
+    S = h.shape[1]
 
     if CHUNK and S % CHUNK == 0:
         state, o = _chunked_recurrence(r, k, v, w, u,
@@ -196,58 +281,60 @@ def time_mix_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
 
         state, o = time_scan(step, state.to(torch.float32), S)
         o = o.transpose(0, 1)                                  # (B,S,H,hd)
-    o = o.reshape(B, S, D).to(x.dtype)
-    o = rms_norm(o, p["ln_x"]) * g
-    out = o @ p["wo"]
-    return (shard_hint(out, ("batch", "act_seq", "act_embed")), x[:, -1, :],
+    out = _time_mix_out(cfg, p, o, g, h, sharded)
+    return (shard_hint(out, ("batch", "act_seq", "act_embed")), h[:, -1, :],
             state)
 
 
-def time_mix_step(cfg: ArchConfig, p: Tree, x: torch.Tensor,
-                  prev_x: torch.Tensor, state: torch.Tensor
+def time_mix_step(cfg: ArchConfig, p: Tree, x, prev_x: torch.Tensor,
+                  state: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One token: x (B,D); state (B,H,hd,hd) float32."""
-    B, D = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
-    mu = p["mu"]
-    xr = x + (prev_x - x) * mu[0]
-    xk = x + (prev_x - x) * mu[1]
-    xv = x + (prev_x - x) * mu[2]
-    xw = x + (prev_x - x) * mu[3]
-    r = (xr @ p["wr"]).reshape(B, H, hd).to(torch.float32)
-    k = (xk @ p["wk"]).reshape(B, H, hd).to(torch.float32)
-    v = (xv @ p["wv"]).reshape(B, H, hd).to(torch.float32)
-    g = F.silu(xv @ p["wg"])
-    w = _decay(p, xw).reshape(B, H, hd)
-    u = p["u"].to(torch.float32)
+    """One token: x (B,D) the block input (or its ``tp.Enter``), prev_x
+    (B,D) in the stream's layout, state (B,H,hd,hd) float32 over the
+    rank's heads. Returns (out, the new prev_x, the new state)."""
+    prev = tp.embed_whole(prev_x, cfg.d_model)
+    r, k, v, g, w, u, h, sharded = _time_mix_inputs(
+        cfg, p, _entered(x), lambda t: prev)
     kv = k[..., :, None] * v[..., None, :]
     o = torch.einsum("bhi,bhij->bhj", r, state + u[None, :, :, None] * kv)
     new_state = w[..., :, None] * state + kv
-    o = o.reshape(B, D).to(x.dtype)
-    o = rms_norm(o, p["ln_x"]) * g
-    return o @ p["wo"], x, new_state
+    return (_time_mix_out(cfg, p, o, g, h, sharded),
+            tp.embed_part(h, cfg.d_model), new_state)
 
 
-def channel_mix_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
-                    prev_x: torch.Tensor
+def _channel_mix(cfg: ArchConfig, p: Tree, xe: "tp.Enter", shifted
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """sigmoid(xr W_r) * (relu(xk W_k)^2 W_v): W_k and W_r column-
+    parallel, W_v row-parallel, so its partial sums are reduce-scattered
+    onto W_r's columns before the gate (``tp.gate``). Returns (out, the
+    whole block input the gate read)."""
+    d, f = cfg.d_model, cfg.d_ff
+    ks, rs = p["wk"].shape[-1] != f, p["wr"].shape[-1] != d
+    mix = _mixer(xe, shifted, p["mu"])
+    xk, xr = mix(0, ks), mix(1, rs)
+    k = torch.square(F.relu(xk @ p["wk"]))
+    if k.dim() == 3:
+        k = shard_hint(k, ("batch", "seq", "act_ff"))
+    out = tp.gate(torch.sigmoid(xr @ p["wr"]), rs, k @ p["wv"],
+                  p["wv"].shape[-2] != f)
+    return out, xe.part() if rs else xe.whole()
+
+
+def channel_mix_seq(cfg: ArchConfig, p: Tree, x, prev_x: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    xs = _shift(x, prev_x)
-    mu = p["mu"]
-    xk = x + (xs - x) * mu[0]
-    xr = x + (xs - x) * mu[1]
-    k = torch.square(F.relu(xk @ p["wk"]))
-    k = shard_hint(k, ("batch", "seq", "act_ff"))
-    return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x[:, -1, :]
+    """x (B,S,D) the block input (or its ``tp.Enter``), prev_x (B,D) whole;
+    returns (out in the stream's layout, the new prev_x, whole)."""
+    out, h = _channel_mix(cfg, p, _entered(x), lambda t: _shift(t, prev_x))
+    return out, h[:, -1, :]
 
 
-def channel_mix_step(cfg: ArchConfig, p: Tree, x: torch.Tensor,
-                     prev_x: torch.Tensor
+def channel_mix_step(cfg: ArchConfig, p: Tree, x, prev_x: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    mu = p["mu"]
-    xk = x + (prev_x - x) * mu[0]
-    xr = x + (prev_x - x) * mu[1]
-    k = torch.square(F.relu(xk @ p["wk"]))
-    return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x
+    """One token: x (B,D) the block input (or its ``tp.Enter``), prev_x
+    (B,D) in the stream's layout; returns (out, the new prev_x)."""
+    prev = tp.embed_whole(prev_x, cfg.d_model)
+    out, h = _channel_mix(cfg, p, _entered(x), lambda t: prev)
+    return out, tp.embed_part(h, cfg.d_model)
 
 
 class RWKVLM:
@@ -276,26 +363,40 @@ class RWKVLM:
         return abstract_params(self.param_specs())
 
     # -------------------------------------------------------------- #
+    def _tp(self, seq_len: Optional[int]):
+        """The tensor-parallel region over a residual stream of
+        ``seq_len`` tokens (None: decode)."""
+        return tp.region(seq_len, self.cfg.d_model)
+
+    @staticmethod
+    def _norm(x: torch.Tensor, gamma: torch.Tensor) -> "tp.Enter":
+        """A block's input ``rms_norm(x, gamma)`` as the layers take it:
+        the residual stream with its norm (``tensor_parallel.Enter``)."""
+        return tp.Enter(x, lambda t, wrap: rms_norm(t, wrap(gamma)))
+
     def _layer_seq(self, lp: Tree, x: torch.Tensor, st: Tree
                    ) -> Tuple[torch.Tensor, Tree]:
         cfg = self.cfg
-        h = rms_norm(x, lp["ln1.gamma"])
         tm_out, tm_prev, tm_state = time_mix_seq(
-            cfg, subtree(lp, "tm."), h, st["tm_prev"], st["state"])
+            cfg, subtree(lp, "tm."), self._norm(x, lp["ln1.gamma"]),
+            st["tm_prev"], st["state"])
         x = x + tm_out
-        h2 = rms_norm(x, lp["ln2.gamma"])
-        cm_out, cm_prev = channel_mix_seq(cfg, subtree(lp, "cm."), h2,
-                                          st["cm_prev"])
+        cm_out, cm_prev = channel_mix_seq(
+            cfg, subtree(lp, "cm."), self._norm(x, lp["ln2.gamma"]),
+            st["cm_prev"])
         x = x + cm_out
         return x, {"state": tm_state, "tm_prev": tm_prev,
                    "cm_prev": cm_prev}
 
-    def _zero_layer_state(self, B: int, device) -> Tree:
+    def _zero_layer_state(self, lp: Tree, B: int, device) -> Tree:
+        """Zero states: the recurrent state over the heads of the rank's
+        ``lp`` (all of them outside tensor parallelism), the token-shift
+        states whole."""
         cfg = self.cfg
+        heads = lp["tm.wr"].shape[-1] // cfg.head_dim
         return {
-            "state": torch.zeros((B, cfg.n_heads, cfg.head_dim,
-                                  cfg.head_dim), dtype=torch.float32,
-                                 device=device),
+            "state": torch.zeros((B, heads, cfg.head_dim, cfg.head_dim),
+                                 dtype=torch.float32, device=device),
             "tm_prev": torch.zeros((B, cfg.d_model), dtype=torch.bfloat16,
                                    device=device),
             "cm_prev": torch.zeros((B, cfg.d_model), dtype=torch.bfloat16,
@@ -305,31 +406,38 @@ class RWKVLM:
     def _train_layer(self, lp: Tree, x: torch.Tensor
                      ) -> Tuple[torch.Tensor]:
         """One layer of the training forward from zero states."""
-        x, _ = self._layer_seq(lp, x,
-                               self._zero_layer_state(x.shape[0], x.device))
+        x, _ = self._layer_seq(lp, x, self._zero_layer_state(
+            lp, x.shape[0], x.device))
         return (x,)
 
     def _head(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, params["final_norm.gamma"])
-        return lm_head(self.cfg, subtree(params, "embed."), x)
+        return lm_head(self.cfg, subtree(params, "embed."),
+                       self._norm(x, params["final_norm.gamma"]))
 
     def forward(self, params: Tree, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (logits (B, S, V), a float32 zero: no auxiliary loss)."""
-        x = embed_tokens(self.cfg, subtree(params, "embed."),
-                         batch["tokens"])
-        for lp in unstack(params, "layers.", self.cfg.n_layers):
-            if self.remat:
-                x, = remat(self._train_layer, lp, x)
-            else:
-                x, = self._train_layer(lp, x)
-        return self._head(params, x), torch.zeros(
-            (), dtype=torch.float32, device=x.device)
+        with self._tp(batch["tokens"].shape[-1]):
+            x = embed_tokens(self.cfg, subtree(params, "embed."),
+                             batch["tokens"])
+            layer = tp.bind(self._train_layer)
+            for lp in unstack(params, "layers.", self.cfg.n_layers):
+                if self.remat:
+                    x, = remat(layer, lp, x)
+                else:
+                    x, = self._train_layer(lp, x)
+            return self._head(params, x), torch.zeros(
+                (), dtype=torch.float32, device=x.device)
 
     def loss(self, params: Tree, batch: Dict[str, torch.Tensor]
              ) -> torch.Tensor:
-        logits, _ = self.forward(params, batch)
-        return cross_entropy_loss(logits[:, :-1, :], batch["labels"][:, 1:])
+        with self._tp(batch["tokens"].shape[-1]):
+            logits, _ = self.forward(params, batch)
+            if logits.shape[-1] != self.cfg.vocab_size:   # vocab-parallel
+                return tp.cross_entropy(logits[:, :-1, :],
+                                        batch["labels"][:, 1:])
+            return cross_entropy_loss(logits[:, :-1, :],
+                                      batch["labels"][:, 1:])
 
     # -------------------------------------------------------------- #
     # decode: the cache is the stacked recurrent state, O(1) in seq
@@ -365,35 +473,44 @@ class RWKVLM:
                     pos: torch.Tensor, cache: Tree
                     ) -> Tuple[torch.Tensor, Tree]:
         """token (B,) int; pos (B,) (unused: the state carries position);
-        returns (logits (B, V), cache), the same dict, updated."""
+        returns (logits (B, V), cache), the same dict, updated. Under
+        tensor parallelism the cache is the rank's part of it: the state
+        over its heads, the token-shift states as the (B, D) stream."""
         cfg = self.cfg
-        src = dict(cache)                  # the leaves the step reads
-        x = params["embed.tok"][token]
-        for i, lp in enumerate(unstack(params, "layers.", self.cfg.n_layers)):
-            h = rms_norm(x, lp["ln1.gamma"])
-            tm_out, tm_prev, state = time_mix_step(
-                cfg, subtree(lp, "tm."), h,
-                src["tm_prev"][i].to(h.dtype), src["state"][i])
-            y = x + tm_out
-            h2 = rms_norm(y, lp["ln2.gamma"])
-            cm_out, cm_prev = channel_mix_step(
-                cfg, subtree(lp, "cm."), h2, src["cm_prev"][i].to(h2.dtype))
-            x = y + cm_out
-            store_layer(cache, "state", i, state)
-            store_layer(cache, "tm_prev", i, tm_prev.to(torch.bfloat16))
-            store_layer(cache, "cm_prev", i, cm_prev.to(torch.bfloat16))
-        return self._head(params, x), cache
+        with self._tp(None):
+            src = dict(cache)              # the leaves the step reads
+            x = tp.embed(params["embed.tok"], token, cfg.vocab_size)
+            for i, lp in enumerate(unstack(params, "layers.",
+                                           cfg.n_layers)):
+                tm_out, tm_prev, state = time_mix_step(
+                    cfg, subtree(lp, "tm."), self._norm(x, lp["ln1.gamma"]),
+                    src["tm_prev"][i].to(x.dtype), src["state"][i])
+                y = x + tm_out
+                cm_out, cm_prev = channel_mix_step(
+                    cfg, subtree(lp, "cm."), self._norm(y, lp["ln2.gamma"]),
+                    src["cm_prev"][i].to(y.dtype))
+                x = y + cm_out
+                store_layer(cache, "state", i, state)
+                store_layer(cache, "tm_prev", i, tm_prev.to(torch.bfloat16))
+                store_layer(cache, "cm_prev", i, cm_prev.to(torch.bfloat16))
+            return self._head(params, x), cache
 
     def prefill(self, params: Tree, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Tree]:
         """Forward over the prompt: (logits (B, S, V), the recurrent state
-        after it, stacked (L, ...), in the dtypes the layers produce)."""
-        x = embed_tokens(self.cfg, subtree(params, "embed."),
-                         batch["tokens"])
-        zero_st = self._zero_layer_state(x.shape[0], x.device)
-        cache: Tree = {}
-        for i, lp in enumerate(unstack(params, "layers.", self.cfg.n_layers)):
-            x, st = self._layer_seq(lp, x, zero_st)
-            for k, v in st.items():
-                store_layer(cache, k, i, v, self.cfg.n_layers)
-        return self._head(params, x), cache
+        after it, stacked (L, ...), in the dtypes the layers produce; under
+        tensor parallelism laid out as ``decode_step`` reads it)."""
+        cfg = self.cfg
+        with self._tp(batch["tokens"].shape[-1]):
+            x = embed_tokens(cfg, subtree(params, "embed."),
+                             batch["tokens"])
+            cache: Tree = {}
+            for i, lp in enumerate(unstack(params, "layers.",
+                                           cfg.n_layers)):
+                x, st = self._layer_seq(lp, x, self._zero_layer_state(
+                    lp, x.shape[0], x.device))
+                st["tm_prev"] = tp.embed_part(st["tm_prev"], cfg.d_model)
+                st["cm_prev"] = tp.embed_part(st["cm_prev"], cfg.d_model)
+                for k, v in st.items():
+                    store_layer(cache, k, i, v, cfg.n_layers)
+            return self._head(params, x), cache

@@ -1,5 +1,5 @@
-"""Tensor parallelism on the 'model' mesh dim for the dense and MoE
-decoder families (``FAMILIES``).
+"""Tensor parallelism on the 'model' mesh dim for the dense, MoE and VLM
+decoder families and RWKV6 (``FAMILIES``).
 
 Makes concrete what the reference leaves to GSPMD. Its rule table
 (``repro.launch.sharding`` lines 38-91) puts every dense weight dim --
@@ -60,6 +60,27 @@ weights from the rank's experts only (others masked to zero) and sums
 over 'model'. Shared experts and the dense prefix layers are MLPs (d_ff
 on 'model').
 
+The VLM (``models.transformer``) is the dense family's blocks over a
+stream of the image embeddings and the tokens: ``embed`` puts the image
+rows (an input, given by rank 0 alone into the partial lookups) ahead of
+the token rows before the stream is laid out, and the region is as long
+as both.
+
+RWKV6 (``models.rwkv6``): the time mix's wr, wk, wv and wg are column-
+parallel over heads (heads_fused), wo row-parallel, and the bonus u is
+split over heads, so each rank runs the recurrence of its own heads
+over the whole sequence (the block input enters through ``Enter.part``
+on every layout: the token shift and the recurrence cross any sequence
+shard). The decay's LoRA is whole: wa's gradient is a part (``copy_in``)
+and w0 and wb's columns are cut to the rank's heads (``split``). The
+output norm ``ln_x`` spans all heads, so its sum of squares is summed
+over 'model' (``rms_norm``, through ``all_sum``). In the channel mix wk
+is column-parallel over d_ff, wv row-parallel and the gate wr column-
+parallel over embed_out: the partial sums of ``k @ wv`` are reduce-
+scattered onto wr's columns before the gate multiplies them (``gate``).
+The decode state splits over heads; the token-shift states follow the
+(B, D) stream (``embed_part`` / ``embed_whole``).
+
 Multi-head latent attention (``models.mla``): wq, w_uk and w_uv are
 column-parallel over heads (heads_fused), wo row-parallel; w_dkv and
 kv_norm (kv_lora) are replicated, so the latent is computed whole and
@@ -86,7 +107,7 @@ The context (``TPContext``) is the mesh, the 'model' dim, this rank's
 coordinate on it, its size and the rules (by default the reference's
 ``base_rules``). ``scope`` enters it; ``models.common.logical_rule_scope``
 does, and so do the sharded step and the dry run. ``region`` marks the
-model code that honours it, which is ``DecoderLM`` of ``FAMILIES``, and
+model code that honours it (``DecoderLM`` and ``RWKVLM``), and
 fixes the residual stream's layout from its global shape; ``bind``
 carries both into a layer that ``remat`` recomputes in the backward
 pass. Outside them, or on a 'model' dim of size 1, ``active()`` is None
@@ -100,8 +121,9 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-# the families whose models compute on their 'model' shards
-FAMILIES = ("dense", "moe")
+# the families whose models compute on their 'model' shards ("ssm" is
+# RWKV6's, ``models.rwkv6.RWKVLM``)
+FAMILIES = ("dense", "moe", "vlm", "ssm")
 
 
 class TPContext(NamedTuple):
@@ -344,6 +366,30 @@ def gather_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     return _apply(_GatherSum, x, dim)
 
 
+def all_sum(x: torch.Tensor) -> torch.Tensor:
+    """Summed over 'model'; the gradient summed too (each rank's consumer
+    gives a part of it)."""
+    return reduce_out(copy_in(x))
+
+
+def embed_part(x: torch.Tensor, d_model: int) -> torch.Tensor:
+    """A whole (..., d_model) row as a (B, D) residual stream lays it out:
+    the rank's slice where the rules put 'act_embed' on 'model' (RWKV6's
+    token-shift states in its cache)."""
+    c = active()
+    if c is None or c.on_model((d_model,), ("act_embed",)) is None:
+        return x
+    return _Split.apply(x, c, -1)
+
+
+def embed_whole(x: torch.Tensor, d_model: int) -> torch.Tensor:
+    """``embed_part``'s inverse: the whole row."""
+    c = active()
+    if c is None or c.on_model((d_model,), ("act_embed",)) is None:
+        return x
+    return _Gather.apply(x, c, -1)
+
+
 # --------------------------------------------------------------------------- #
 # the layers' pieces
 # --------------------------------------------------------------------------- #
@@ -440,19 +486,64 @@ def row(y: torch.Tensor, w: torch.Tensor, full: int, y_sharded: bool
     return leave(y @ w, partial=False)
 
 
-def embed(tok: torch.Tensor, ids: torch.Tensor, vocab: int
-          ) -> torch.Tensor:
-    """The rows of ``tok`` for ``ids`` in the residual stream's layout:
-    with vocab-parallel ``tok`` the rank looks up its own rows (other ids
-    give zero) and the partial lookups are summed."""
-    if tok.shape[0] == vocab:
-        return leave(F.embedding(ids, tok), partial=False)
+def gate(r: torch.Tensor, r_sharded: bool, y: torch.Tensor,
+         y_partial: bool) -> torch.Tensor:
+    """``r * y`` in the residual stream's layout, r a gate over the output
+    columns (the rank's slice of them where ``r_sharded``) and y the
+    product of a row-parallel weight (partial sums, ``y_partial``) or of
+    a whole one: y is reduce-scattered (or cut) onto r's columns, or
+    all-reduced, before the gate multiplies it (RWKV6's channel mix)."""
     c = active()
-    n = tok.shape[0]
-    local = ids - c.rank * n
-    inside = (local >= 0) & (local < n)
-    x = F.embedding(torch.where(inside, local, 0), tok)
-    return leave(x * inside[..., None].to(x.dtype), partial=True)
+    if c is None:
+        return r * y
+    if r_sharded:
+        out = r * (_ScatterSum if y_partial else _Split).apply(y, c, -1)
+        if _STATE["split"] == -1:          # the stream's d_model slice
+            return out
+        return leave(_Gather.apply(out, c, -1), partial=False)
+    if y_partial:
+        y = _ReduceOut.apply(y, c, -1)
+    return leave(r * y, partial=False)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, full: int,
+             eps: float = 1e-6) -> torch.Tensor:
+    """``models.common.rms_norm`` over ``full`` features of which ``x``
+    holds the rank's slice (all of them, or under tensor parallelism a
+    narrower one: the sum of squares all-summed over 'model', the rank's
+    slice of the whole ``gamma`` taken)."""
+    from repro_torch.models.common import rms_norm as whole_norm
+    if x.shape[-1] == full:
+        return whole_norm(x, gamma, eps)
+    xf = x.to(torch.float32)
+    var = all_sum(torch.sum(xf * xf, dim=-1, keepdim=True)) / full
+    g = split(gamma, -1) if gamma.shape[-1] == full else gamma
+    return (xf * torch.rsqrt(var + eps) * g.to(torch.float32)).to(x.dtype)
+
+
+def embed(tok: torch.Tensor, ids: torch.Tensor, vocab: int,
+          prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The rows of ``tok`` for ``ids`` (B, S), after the rows ``prefix``
+    (B, P, D) when given (the VLM's image embeddings, in ``tok``'s dtype),
+    in the residual stream's layout: with vocab-parallel ``tok`` the rank
+    looks up its own rows (other ids give zero) and the partial lookups
+    are summed, the prefix given by rank 0 alone."""
+    partial = tok.shape[0] != vocab
+    if partial:
+        c = active()
+        n = tok.shape[0]
+        local = ids - c.rank * n
+        inside = (local >= 0) & (local < n)
+        x = F.embedding(torch.where(inside, local, 0), tok)
+        x = x * inside[..., None].to(x.dtype)
+    else:
+        x = F.embedding(ids, tok)
+    if prefix is not None:
+        prefix = prefix.to(x.dtype)
+        if partial and c.rank:
+            prefix = torch.zeros_like(prefix)
+        x = torch.cat([prefix, x], dim=-2)
+    return leave(x, partial)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor

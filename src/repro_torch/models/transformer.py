@@ -25,19 +25,18 @@ window caps S (a ring buffer). ``decode_step`` writes into the cache it
 is given and returns that same dict: a caller must not reuse a cache it
 has passed in as the state before the step.
 
-Tensor parallelism (``models.tensor_parallel``) covers the dense and
-MoE families (``tensor_parallel.FAMILIES``): under a context with a
-'model' dim of more than one rank their ``forward``, ``loss``,
-``prefill`` and ``decode_step`` compute on the rank's weight shards (the
-logits are the rank's slice of the vocabulary, the loss the
-vocab-parallel cross-entropy, the cache the rank's part as the rule
-table splits it; MLA's latent cache is whole). The VLM family has no
-such path: under a context it raises, and the sharded step gives it
-whole weights (``core.sharded_step``).
+Tensor parallelism (``models.tensor_parallel``) covers the dense, MoE
+and VLM families (``tensor_parallel.FAMILIES``): under a context with a
+'model' dim of more than one rank ``forward``, ``loss``, ``prefill`` and
+``decode_step`` compute on the rank's weight shards (the logits are the
+rank's slice of the vocabulary, the loss the vocab-parallel
+cross-entropy, the cache the rank's part as the rule table splits it;
+MLA's latent cache is whole). The VLM's residual stream is the image
+embeddings and the tokens (Ni + S rows), laid out as one; its loss
+drops the image rows of the rank's vocabulary slice.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -133,17 +132,9 @@ class DecoderLM:
 
     def _tp(self, seq_len: Optional[int]):
         """The tensor-parallel region over a residual stream of ``seq_len``
-        tokens (None: one a row, decode): the dense and MoE families
-        compute on weight shards under a context; the VLM family has no
-        such path."""
-        if self.cfg.family in tp.FAMILIES:
-            return tp.region(seq_len, self.cfg.d_model)
-        if tp.current() is not None:
-            raise NotImplementedError(
-                f"{self.cfg.name}: tensor parallelism covers the "
-                f"{' and '.join(tp.FAMILIES)} families, not "
-                f"{self.cfg.family!r}")
-        return contextlib.nullcontext()
+        rows (None: one a row, decode): every family ``DecoderLM`` builds
+        computes on weight shards under a context."""
+        return tp.region(seq_len, self.cfg.d_model)
 
     def _norm(self, x: torch.Tensor, p: Tree, prefix: str):
         """A block's input: ``norm(x)``, or under tensor parallelism the
@@ -170,12 +161,21 @@ class DecoderLM:
     # ------------------------------------------------------------------ #
     def _embed_inputs(self, params: Tree, batch: Dict[str, torch.Tensor]
                       ) -> torch.Tensor:
-        x = embed_tokens(self.cfg, subtree(params, "embed."),
-                         batch["tokens"])
-        if self.cfg.family == "vlm":
-            img = batch["image_embeds"].to(x.dtype)           # (B, Ni, D)
-            x = torch.cat([img, x], dim=1)
-        return x
+        """The residual stream: the VLM's image embeddings (B, Ni, D)
+        ahead of the token embeddings."""
+        return embed_tokens(self.cfg, subtree(params, "embed."),
+                            batch["tokens"], self._image(batch))
+
+    def _image(self, batch: Dict[str, torch.Tensor]
+               ) -> Optional[torch.Tensor]:
+        return batch["image_embeds"] if self.cfg.family == "vlm" else None
+
+    def _stream_len(self, batch: Dict[str, torch.Tensor]) -> int:
+        """The residual stream's length: the tokens, after the VLM's
+        image embeddings."""
+        img = self._image(batch)
+        return batch["tokens"].shape[-1] + (0 if img is None
+                                            else img.shape[-2])
 
     def _train_block(self, lp: Tree, x: torch.Tensor
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -206,7 +206,7 @@ class DecoderLM:
     def forward(self, params: Tree, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (logits (B, S_total, V), aux_loss scalar float32)."""
-        with self._tp(batch["tokens"].shape[-1]):
+        with self._tp(self._stream_len(batch)):
             x = self._embed_inputs(params, batch)
             aux_total = torch.zeros((), dtype=torch.float32,
                                     device=x.device)
@@ -223,7 +223,7 @@ class DecoderLM:
 
     def loss(self, params: Tree, batch: Dict[str, torch.Tensor]
              ) -> torch.Tensor:
-        with self._tp(batch["tokens"].shape[-1]):
+        with self._tp(self._stream_len(batch)):
             logits, aux = self.forward(params, batch)
             if self.cfg.family == "vlm":
                 logits = logits[:, self.cfg.num_image_tokens:, :]
@@ -317,7 +317,7 @@ class DecoderLM:
                 ) -> Tuple[torch.Tensor, Tree]:
         """Full-sequence forward that also returns the KV cache:
         (logits (B, S_total, V), cache with S = S_total)."""
-        with self._tp(batch["tokens"].shape[-1]):
+        with self._tp(self._stream_len(batch)):
             x = self._embed_inputs(params, batch)
             cache: Optional[Tree] = None
             for i, lp in enumerate(self._layers(params)):

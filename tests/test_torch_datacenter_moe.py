@@ -86,6 +86,17 @@ def test_chip_smoke_moe_tensor_parallel_counts_are_the_reference_tree_s():
     _assert_reference_tree(chip_smoke.TP_MOE)
 
 
+def test_chip_smoke_vlm_ssm_tensor_parallel_counts_are_the_reference_tree_s():
+    """``chip_smoke.TP_VLM_SSM`` (phase 30's VLM and RWKV6 configs on the
+    tensor-parallel step): phi-3-vision-4.2b at published widths, 2
+    layers (12 leaves, 9 of them tileable at block 32), and rwkv6-7b as
+    phase 18 cuts it."""
+    chip_smoke = _chip_smoke()
+    assert sorted(chip_smoke.TP_VLM_SSM) == ["phi-3-vision-4.2b",
+                                             "rwkv6-7b"]
+    _assert_reference_tree(chip_smoke.TP_VLM_SSM)
+
+
 def test_one_hot_is_f_one_hot_and_maps_over_clients():
     """``moe.one_hot`` equals ``F.one_hot(...).to(dtype)``, the
     out-of-range index (past the last capacity slot) aside, which gives

@@ -13,19 +13,25 @@ whisper-medium x prefill_32k, and train_4k as a scanned segment of 2
 rounds with about twice the single round's FLOPs), and its documented
 skip prints SKIP and exits 0. No jax is imported.
 
-The dense and MoE families compute on their 'model' shards (tensor
-parallelism): their activation variants ({"act": "seq"}, 'act_*'
-overrides) lay out the residual stream and give records of their own.
-granite-8b x train_4k under {"act": "seq"} peaks below the whole-weight
-step's record for the same pair (391,199,604,656 bytes a device, the
-port's dry run before tensor parallelism), and so does
-deepseek-v2-lite-16b x train_4k (412,236,220,148 bytes). The other
-families still raise for them.
+The dense, MoE, VLM and RWKV6 families compute on their 'model' shards
+(tensor parallelism): their activation variants ({"act": "seq"},
+'act_*' overrides) lay out the residual stream and give records of their
+own. granite-8b x train_4k under {"act": "seq"} peaks below the
+whole-weight step's record for the same pair (391,199,604,656 bytes a
+device, the port's dry run before tensor parallelism), and so does
+deepseek-v2-lite-16b x train_4k (412,236,220,148 bytes). The hybrid and
+encoder-decoder families still raise for them.
+
+The recurrent families' train_4k (4,096 steps a layer, counted from four
+of them: tests/test_torch_dryrun_scan.py) finish within 120 s each:
+rwkv6-7b under {"act": "seq"} (tensor parallel over heads, the sequence
+gathered whole for the recurrence) and zamba2-2.7b (whole weights).
 """
 import json
 import os
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -45,6 +51,10 @@ VARIANTS = [{"act": "seq"}, {"rules_override": {"act_embed": None}},
 for _i, _v in enumerate(VARIANTS):
     PAIRS[f"act{_i}"] = ("granite-8b", "train_4k", json.dumps(_v))
 PAIRS["moe"] = ("deepseek-v2-lite-16b", "train_4k", json.dumps(VARIANTS[0]))
+# the recurrent families' train_4k, each within its own TIMEOUT
+PAIRS["rwkv_seq"] = ("rwkv6-7b", "train_4k", json.dumps(VARIANTS[0]))
+PAIRS["zamba2"] = ("zamba2-2.7b", "train_4k", "{}")
+TIMEOUT = {"rwkv_seq": 120, "zamba2": 120}
 # train_4k on (2, 4), the port's step on whole weights
 WHOLE_WEIGHT_PEAK = 391199604656
 MOE_WHOLE_WEIGHT_PEAK = 412236220148              # deepseek-v2-lite-16b
@@ -56,6 +66,7 @@ def runs(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                OMP_NUM_THREADS="1")
     procs = {}
+    start = time.time()
     for name, (arch, shape, variant) in PAIRS.items():
         d = out / name
         procs[name] = (d, subprocess.Popen(
@@ -65,7 +76,14 @@ def runs(tmp_path_factory):
             stderr=subprocess.PIPE, text=True))
     done = {}
     for name, (d, p) in procs.items():
-        stdout, stderr = p.communicate(timeout=300)
+        try:
+            stdout, stderr = p.communicate(
+                timeout=max(TIMEOUT.get(name, 300) - (time.time() - start),
+                            0))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            stdout, stderr = p.communicate()
+            stderr += f"\n{name}: past its {TIMEOUT.get(name, 300)} s"
         files = sorted(d.glob("*.json")) if d.exists() else []
         done[name] = (p.returncode, stdout, stderr,
                       [json.loads(f.read_text()) for f in files])
@@ -159,14 +177,14 @@ def test_pruning_kernels_run_on_shards(block):
         dist.destroy_process_group()
 
 
-OTHER_FAMILIES = {"vlm": "phi-3-vision-4.2b", "ssm": "rwkv6-7b",
-                  "hybrid": "zamba2-2.7b", "encdec": "whisper-medium"}
+OTHER_FAMILIES = {"hybrid": "zamba2-2.7b", "encdec": "whisper-medium"}
 
 
 @pytest.mark.parametrize("family", list(OTHER_FAMILIES))
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_activation_variants_raise(variant, family):
-    # the families without tensor parallelism lay out no activation:
+    # the families without tensor parallelism (hybrid, encoder-decoder)
+    # lay out no activation:
     # these variants would write records equal to the baseline's
     from repro_torch import configs
     from repro_torch.launch import dryrun_lib
@@ -209,6 +227,58 @@ def test_activation_variants_lay_out_the_moe_family(arch, i):
         if k.split(".")[-1] in ("router", "w_gate", "w_up", "w_down", "wq",
                                 "w_uk", "w_uv"):
             assert "model" in s.spec, (k, s.spec)
+
+
+@pytest.mark.parametrize("i", range(len(VARIANTS)))
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "rwkv6-7b"])
+def test_activation_variants_lay_out_the_vlm_and_rwkv_families(arch, i):
+    # the VLM's and RWKV6's variants resolve to rules that move the
+    # residual stream's split (over the sequence, or none) and keep the
+    # heads (and RWKV6's channel-mix d_ff where the variant leaves it)
+    # on 'model'
+    from repro_torch import configs
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import build_model
+    from repro_torch.models.tensor_parallel import TPContext
+    mesh = AbstractMesh((("data", 2), ("model", 4)))
+    cfg = configs.get_arch(arch)
+    base = sh.base_rules(mesh)
+    rules = dryrun_lib._apply_variant_rules(dict(base), VARIANTS[i], cfg)
+    changed = {k for k in rules if rules[k] != base[k]}
+    assert changed == [{"act_seq", "act_embed"}, {"act_embed"},
+                       {"act_seq", "d_ff"}][i]
+
+    def split(r):
+        ctx = TPContext(mesh, 1, 0, 4, r)
+        return ctx.on_model((4096, cfg.d_model), ("act_seq", "act_embed"))
+    assert split(base) == -1
+    assert split(rules) == [-2, None, -2][i]
+    psh = sh.param_shardings(mesh, build_model(cfg), rules)
+    heads = ("wq", "wk", "wv") if cfg.family == "vlm" else \
+        ("wr", "wk", "wv", "wg", "u")
+    for k, s in psh.items():
+        if k.startswith(("layers.attn.", "layers.tm.")) \
+                and k.split(".")[-1] in heads:
+            assert "model" in s.spec, (k, s.spec)
+        if k == "layers.cm.wv":
+            assert ("model" in s.spec) == (i != 2), (k, s.spec)
+
+
+@pytest.mark.parametrize("name", ["rwkv_seq", "zamba2"])
+def test_recurrent_train_pairs_finish(runs, name):
+    # C1: the step-by-step recurrences of train_4k, counted from four
+    # steps a scan, finish on the test mesh within their timeouts
+    (rec,) = _ok(runs[name])
+    arch, shape, variant = PAIRS[name]
+    assert rec["arch"] == arch and rec["mode"] == "train"
+    assert rec["variant"] == json.loads(variant) and rec["n_clients"] == 2
+    assert rec["flops_per_device"] > rec["model_flops"] > 0
+    assert rec["bytes_per_device"] > rec["args_bytes"] > 0
+    assert rec["compile_seconds"] < TIMEOUT[name]
+    if name == "rwkv_seq":                    # tensor parallel over heads
+        assert rec["collective_count"] > 0
 
 
 def test_moe_dry_run_peaks_below_the_whole_weight_record(runs):

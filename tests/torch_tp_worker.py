@@ -1,10 +1,11 @@
-"""The rank program of ``test_torch_tensor_parallel.py``: the dense and
-MoE families' tensor-parallel step, prefill and decode on one rank of a
-(2, 4) gloo mesh. A module of its own, without jax, so that each spawned
-rank imports only the port."""
+"""The rank program of ``test_torch_tensor_parallel.py``: the dense,
+MoE, VLM and RWKV6 families' tensor-parallel step, prefill and decode on
+one rank of a (2, 4) gloo mesh. A module of its own, without jax, so
+that each spawned rank imports only the port."""
 import dataclasses
 import os
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, reduce_for_smoke
@@ -29,11 +30,17 @@ CONFIGS = {"granite": ("granite-8b", dict(n_kv_heads=2), {}),
            # before wo), and the experts and router are whole
            "deepseek_cut": ("deepseek-v2-lite-16b",
                             dict(n_heads=6, n_kv_heads=6),
-                            dict(num_experts=6, top_k=2))}
+                            dict(num_experts=6, top_k=2)),
+           # 8 image tokens ahead of the 16 text tokens: a stream of 24
+           "phi": ("phi-3-vision-4.2b", {}, {}),
+           # 8 heads of 32, two a rank
+           "rwkv": ("rwkv6-7b", {}, {})}
 # olmoe's router (256, 8) is pruned by tiles of 8 (its 2-column shards
 # by sub-tiles, as the full-width router's 4 columns at block 32);
-# deepseek's, not tileable at 64, by magnitude
-BLOCKS = {"olmoe": 8}
+# deepseek's, not tileable at 64, by magnitude; rwkv6's u (8, 32) by tiles
+# of 8 (its 2-row head shards by sub-tiles, as the full-width u's 4 rows a
+# rank at block 32)
+BLOCKS = {"olmoe": 8, "rwkv": 8}
 LAYOUTS = {"d_model": {}, "seq": {"act": "seq"},
            "whole": {"rules_override": {"act_embed": None}}}
 # (layout, uplink): the quantizer under the baseline layout; every layout
@@ -81,13 +88,54 @@ def source(uniforms):
     return draw
 
 
+def images(cfg):
+    """The VLM's (C, ROWS, num_image_tokens, d_model) image embeddings
+    (float32, seeded), or None for the other families."""
+    if cfg.family != "vlm":
+        return None
+    rng = np.random.default_rng(2)
+    return (0.02 * rng.standard_normal(
+        (C, ROWS, cfg.num_image_tokens, cfg.d_model))).astype(np.float32)
+
+
 def port(name, tree, tokens):
-    """(config, model, float32 params, {"tokens", "labels"})."""
+    """(config, model, float32 params, {"tokens", "labels"} and the VLM's
+    "image_embeds")."""
     cfg = port_config(name)
     model = build_model(cfg)
     params = {k: v.float() for k, v in params_from_numpy(tree).items()}
     t = torch.from_numpy(tokens).long()
-    return cfg, model, params, {"tokens": t, "labels": t}
+    batch = {"tokens": t, "labels": t}
+    img = images(cfg)
+    if img is not None:
+        batch["image_embeds"] = torch.from_numpy(img)
+    return cfg, model, params, batch
+
+
+def stream_len(cfg):
+    """The prompt's residual stream in serving: the image tokens and SEQ
+    text tokens."""
+    return SEQ + (cfg.num_image_tokens if cfg.family == "vlm" else 0)
+
+
+def decode_cache(model, cache, pcache, n):
+    """The decode cache from the prefill's ``pcache`` over a stream of
+    ``n``: spliced into ``cache`` (allocated for n + STEPS) along the
+    sequence axis where the cache has one; a recurrent state as it is
+    (torch or jax arrays)."""
+    out = {}
+    for k, v in pcache.items():
+        axes = model.cache_axes()[k]
+        if "seq" not in axes:
+            out[k] = v
+            continue
+        idx = (slice(None),) * axes.index("seq") + (slice(0, n),)
+        if hasattr(cache[k], "at"):                   # jax
+            out[k] = cache[k].at[idx].set(v)
+        else:
+            out[k] = cache[k].clone()
+            out[k][idx] = v
+    return out
 
 
 def make_step(model, uniforms, uplink="ltfl", prune_block=BLOCK, **kw):
@@ -141,27 +189,29 @@ def run_rank(rank, port_no, out_dir):
             local = {k: sh.local_slice(v, psh[k]).contiguous()
                      for k, v in params.items()}
             ctx = tp.context_for(mesh, base)
-            cache = model.init_cache(ROWS, SEQ + STEPS)
+            n = stream_len(cfg)
+            cache = model.init_cache(ROWS, n + STEPS)
             csh = sh.cache_shardings(mesh, base, model, cache)
             with torch.inference_mode(), logical_rule_scope(base, mesh):
-                logits, pcache = model.prefill(local, {"tokens":
-                                                       batch["tokens"][0]})
+                logits, pcache = model.prefill(
+                    local, {k: v[0] for k, v in batch.items()
+                            if k != "labels"})
                 whole = {}
                 for k, v in cache.items():
                     # every rank holds all ROWS rows: 'model' splits only
                     # (MLA's latent cache not at all)
                     spec = tuple(None if e == "data" else e
                                  for e in csh[k].spec)
-                    cache[k] = sh.local_slice(
-                        v, sh.NamedSharding(mesh, spec)).clone()
-                    cache[k][:, :, :SEQ] = pcache[k]
+                    cache[k] = sh.local_slice(v, sh.NamedSharding(mesh,
+                                                                  spec))
                     whole[k] = (pcache[k] if "model" not in spec else
                                 tp.all_gather(pcache[k], ctx,
                                               spec.index("model")
                                               - len(spec)))
+                cache = decode_cache(model, cache, pcache, n)
                 got = {"prefill": tp.all_gather(logits, ctx, -1),
                        "cache": whole, "decode": []}
-                pos = torch.full((ROWS,), SEQ)
+                pos = torch.full((ROWS,), n)
                 for t in steps:
                     lg, cache = model.decode_step(
                         local, torch.from_numpy(t).long(), pos, cache)
