@@ -295,7 +295,8 @@ Phases; any failure exits non-zero before the result lines:
 29. the launch tooling (ROADMAP A8): (a) the dry run
    (``python -m repro_torch.launch.dryrun``, each pair in its own
    process under a fake process group at the lowest scheduling
-   priority, all started together with phase 28, with phase 30's): granite-8b x train_4k on the production (16, 16) and
+   priority, with phase 30's queued before phase 21 and run
+   ``DRYRUN_WORKERS`` at a time): granite-8b x train_4k on the production (16, 16) and
    (2, 16, 16) meshes and the reference's three CI pairs on the (2, 4)
    test mesh (granite-8b x decode_32k, whisper-medium x prefill_32k,
    granite-8b x train_4k as a scanned segment of 2 rounds), and the
@@ -304,8 +305,8 @@ Phases; any failure exits non-zero before the result lines:
    them, ``launch.op_analysis.OpCounter.scan``), with their seconds;
    each record printed with ``fits_hbm`` against 80 GB; (b) the sharded step on its
    whole-weight path (``make_fl_train_step(param_shardings=,
-   gather_shardings=, tensor_parallel=False)``, the path of every family
-   but the dense one) on an
+   gather_shardings=, tensor_parallel=False)``, the path that phase 30
+   holds the tensor-parallel one against) on an
    NCCL world of one and a ("data", "model") = (1, 1) ``DeviceMesh``,
    params DTensors placed by the rule table, phase 9's run (granite-8b at
    its published widths, 2 layers, the launcher's defaults), 3 steps
@@ -324,9 +325,9 @@ Phases; any failure exits non-zero before the result lines:
    (the forward alone) bitwise, the later losses, the first step's
    aggregate norm and the weights after the last step within
    ``REMAT_*_REL`` of each other, both peaks and both step times.
-30. tensor parallelism over 'model' for the dense, MoE, VLM and RWKV6
-   families (``models.tensor_parallel``): (a) the sharded step on its
-   tensor-parallel path (those families' default) on an NCCL world of
+30. tensor parallelism over 'model' for every language-model family
+   (``models.tensor_parallel``): (a) the sharded step on its
+   tensor-parallel path (their default) on an NCCL world of
    one and a (1, 1) mesh, 3 steps with SGD and 3 with the int8 wire
    format each: phase 9's run (granite-8b), then olmoe-1b-7b (phase 18's
    cut: 2 layers, 1,045,178,368 parameters) and deepseek-v2-lite-16b
@@ -334,10 +335,14 @@ Phases; any failure exits non-zero before the result lines:
    layer, 1,085,287,424 parameters) at the launcher's defaults
    (``TP_MOE``), then phi-3-vision-4.2b (published widths, 2 layers,
    423,508,992 parameters) and rwkv6-7b (phase 18's cut: 2 layers,
-   974,221,312 parameters; ``TP_VLM_SSM``): losses and weights bitwise
+   974,221,312 parameters; ``TP_VLM_SSM``), then zamba2-2.7b (phase
+   18's cut: 6 layers, 508,034,720 parameters) and whisper-medium
+   (phase 18's cut: 2 + 2 layers over 1,500 frames, 169,158,656
+   parameters; ``TP_HYBRID_ENCDEC``): losses and weights bitwise
    the plain step's, the SGD losses bitwise phase 9's (granite) and
-   phase 18's (olmoe, rwkv6), launches a step 12 / 9 / 18, olmoe 13 /
-   10 / 20, deepseek 29 / 22 / 44, phi 12 / 9 / 18, rwkv6 20 / 13 / 26
+   phase 18's (olmoe, rwkv6, zamba2, whisper), launches a step 12 / 9 /
+   18, olmoe 13 / 10 / 20, deepseek 29 / 22 / 44, phi 12 / 9 / 18,
+   rwkv6 20 / 13 / 26, zamba2 21 / 10 / 20, whisper 33 / 17 / 34
    (0 B1 under int8), each step's time beside the plain step's and the
    whole-weight sharded step's (``tensor_parallel=False``, also
    bitwise); (b) meta dry runs of granite-8b x train_4k on (16, 16) and
@@ -345,9 +350,11 @@ Phases; any failure exits non-zero before the result lines:
    x decode_32k on (16, 16); of olmoe-1b-7b x train_4k on (16, 16) and
    (2, 16, 16); of deepseek-v2-lite-16b x train_4k on (16, 16) under {}
    and {"act": "seq"}, and x prefill_32k and x decode_32k on (16, 16);
-   of phi-3-vision-4.2b x train_4k, x prefill_32k and x decode_32k and
-   of rwkv6-7b x train_4k under {} and {"act": "seq"}, x prefill_32k and
-   x decode_32k on (16, 16); started with phase 29's, each printed
+   of phi-3-vision-4.2b x train_4k, x prefill_32k and x decode_32k, of
+   rwkv6-7b and zamba2-2.7b x train_4k under {} and {"act": "seq"}, x
+   prefill_32k and x decode_32k, and of whisper-medium x train_4k, x
+   prefill_32k and x decode_32k on (16, 16); started with phase 29's,
+   each printed
    beside the whole-weight step's record of the same pair
    (``WHOLE_WEIGHT_RECORDS``), with phase 29's granite baseline train
    records. No 'model' axis of more than one rank runs on
@@ -383,7 +390,8 @@ step under the int8 wire format, momentum and AdamW
 (``tensor_parallel_step_launches_per_step`` for granite-8b,
 ``moe_tensor_parallel_step_launches_per_step`` by MoE config,
 ``vlm_ssm_tensor_parallel_step_launches_per_step`` for phi-3-vision-4.2b
-and rwkv6-7b). The
+and rwkv6-7b, ``hybrid_encdec_tensor_parallel_step_launches_per_step``
+for zamba2-2.7b and whisper-medium). The
 ``block_sparse_matmul`` row also carries its main-path launches by path
 (``path``), the paths of phase 11's products (``check_paths``), its rate
 on live work (``kernel_tflops``) and the rho sweep.
@@ -3848,6 +3856,12 @@ DRYRUN_PAIRS = (
     ("zamba2-2.7b", "train_4k", ["--test-mesh"], "{}"),
 )
 LAUNCH_STEPS = 3                        # phase 29 (b): steps a variant
+# phases 29-30's dry runs, queued before phase 21 and run at the lowest
+# priority this many at a time beside phases 21-28 (31 processes
+# started together beside phase 28 doubled its host times); the queue
+# is a process of its own: threads of the card's process that fork
+# hung it
+DRYRUN_WORKERS = 3
 # phase 29 (d), remat on against off (relative), about ten times what
 # the H100 80GB HBM3 (700 W) reads: the losses of steps 1-2 (1.2e-4 at
 # most; stochastic levels flip where the bf16 gradients round apart), the
@@ -3859,33 +3873,108 @@ REMAT_NORM_REL = 3e-4
 REMAT_WEIGHT_REL = 2e-3
 
 
+def _dryrun_queue(spec: str, workers: int) -> None:
+    """The dry runs of the JSON file ``spec`` ([[argv, directory], ...]),
+    ``workers`` at a time, at the lowest scheduling priority, in a process
+    of their own that touches no card (its threads fork the dry runs;
+    none of the card's process does). Each leaves its stdout, stderr and
+    exit code in its directory (``out.txt``, ``err.txt``, ``rc.txt``)."""
+    import os
+    os.nice(19)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+
+    def run(job):
+        argv, d = job
+        d = Path(d)
+        d.mkdir(parents=True, exist_ok=True)
+        r = subprocess.run(argv, env=env, cwd=HERE, capture_output=True,
+                           text=True)
+        (d / "out.txt").write_text(r.stdout)
+        (d / "err.txt").write_text(r.stderr)
+        (d / "rc.txt").write_text(str(r.returncode))
+
+    with open(spec) as f:
+        jobs = json.load(f)
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        list(pool.map(run, jobs))
+
+
+class _Queued:
+    """A dry run in ``_dryrun_queue``'s process ``queue``:
+    ``communicate``, ``poll``, ``kill``, ``wait`` and ``returncode`` as a
+    ``subprocess.Popen``'s, read from its directory ``d``."""
+
+    def __init__(self, d: Path, queue):
+        self.d, self.queue, self.returncode = d, queue, None
+
+    def poll(self):
+        rc = self.d / "rc.txt"
+        if self.returncode is None and rc.exists():
+            self.returncode = int(rc.read_text())
+        if self.returncode is None and self.queue.poll() is not None:
+            self.returncode = self.queue.returncode or -1   # queue died
+        return self.returncode
+
+    def communicate(self, timeout=None):
+        end = time.time() + (timeout or math.inf)
+        while self.poll() is None:
+            if time.time() > end:
+                raise TimeoutError(f"{self.d}")
+            time.sleep(0.5)
+        return tuple((self.d / f).read_text() if (self.d / f).exists()
+                     else "" for f in ("out.txt", "err.txt"))
+
+    def kill(self):
+        import os
+        import signal
+        if self.queue.poll() is None:
+            os.killpg(self.queue.pid, signal.SIGKILL)
+
+    def wait(self):
+        self.queue.wait()
+
+
+def _queue_dryruns(groups, workers: int):
+    """``groups`` of (directory, pairs) queued in one ``_dryrun_queue``
+    process of ``workers``, started now from this (the main) thread: per
+    group, its [(pair directory, ``_Queued``), ...]."""
+    jobs, dirs = [], []
+    for out_dir, pairs in groups:
+        dirs.append([out_dir / f"pair{i}" for i in range(len(pairs))])
+        jobs += [[[sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, *flags, "--variant",
+                   variant, "--out", str(d)], str(d)]
+                 for d, (arch, shape, flags, variant) in zip(dirs[-1],
+                                                             pairs)]
+    groups[0][0].mkdir(parents=True, exist_ok=True)
+    spec = str(groups[0][0] / "queue.json")
+    with open(spec, "w") as f:
+        json.dump(jobs, f)
+    queue = subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, "
+         f"{str(HERE)!r}); import chip_smoke; chip_smoke._dryrun_queue("
+         f"{spec!r}, {workers})"], cwd=HERE, start_new_session=True)
+    return [[(d, _Queued(d, queue)) for d in ds] for ds in dirs]
+
+
 def _start_dryruns(out_dir: Path, pairs=DRYRUN_PAIRS):
     """Dry runs of ``pairs`` (phase 29 (a)'s by default), each in its own
-    process at the lowest scheduling priority (so that the phases timed
-    meanwhile keep their core), started now."""
-    import os
-    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
-    procs = []
-    for i, (arch, shape, flags, variant) in enumerate(pairs):
-        d = out_dir / f"pair{i}"
-        procs.append((d, subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, *flags, "--variant", variant,
-             "--out", str(d)], env=env, cwd=HERE, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True,
-            preexec_fn=lambda: os.nice(19))))
-    return procs
+    process at the lowest scheduling priority, all started now."""
+    return _queue_dryruns([(out_dir, pairs)], len(pairs))[0]
 
 
 def start_all_dryruns(more_pairs=None):
     """Phase 29's dry runs and ``more_pairs`` (phase 30's
-    ``TP_DRYRUN_PAIRS`` by default), started now: (procs, more procs) for
+    ``TP_DRYRUN_PAIRS`` by default), queued now and run
+    ``DRYRUN_WORKERS`` at a time: (procs, more procs) for
     ``phase_launch_tooling``'s ``started``."""
     import atexit
     import tempfile
     tmp = Path(tempfile.mkdtemp(prefix="dryrun_torch_"))
-    procs = (_start_dryruns(tmp), _start_dryruns(
-        tmp / "more", TP_DRYRUN_PAIRS if more_pairs is None else more_pairs))
+    procs = _queue_dryruns(
+        [(tmp, DRYRUN_PAIRS),
+         (tmp / "more", TP_DRYRUN_PAIRS if more_pairs is None
+          else more_pairs)], DRYRUN_WORKERS)
 
     def stop():                     # a failed phase leaves none running
         for _, p in procs[0] + procs[1]:
@@ -3893,7 +3982,7 @@ def start_all_dryruns(more_pairs=None):
                 p.kill()
                 p.wait()
     atexit.register(stop)
-    return procs
+    return tuple(procs)
 
 
 def _finish_dryruns(procs, pairs=DRYRUN_PAIRS):
@@ -3901,9 +3990,8 @@ def _finish_dryruns(procs, pairs=DRYRUN_PAIRS):
     for (d, p), (arch, shape, flags, variant) in zip(procs, pairs):
         try:
             out, err = p.communicate(timeout=300)
-        except subprocess.TimeoutExpired:
+        except TimeoutError:
             p.kill()
-            p.communicate()
             fail(f"dry run {arch} x {shape} {flags} timed out")
         files = sorted(d.glob("*.json"))
         if p.returncode != 0 or "dry-run complete" not in out \
@@ -4169,6 +4257,10 @@ TP_VLM_SSM = {
                            "apply_block_mask": 18}),
     "rwkv6-7b": DC_FAMILIES["rwkv6-7b"],
 }
+# phase 30 (a): the hybrid's and the encoder-decoder's TP step, as phase
+# 18 cuts them
+TP_HYBRID_ENCDEC = {name: DC_FAMILIES[name]
+                    for name in ("zamba2-2.7b", "whisper-medium")}
 # phase 30 (b): the tensor-parallel dry runs, started with phase 29's
 TP_DRYRUN_PAIRS = (
     ("granite-8b", "train_4k", [], '{"act": "seq"}'),
@@ -4188,6 +4280,13 @@ TP_DRYRUN_PAIRS = (
     ("rwkv6-7b", "train_4k", [], '{"act": "seq"}'),
     ("rwkv6-7b", "prefill_32k", [], "{}"),
     ("rwkv6-7b", "decode_32k", [], "{}"),
+    ("zamba2-2.7b", "train_4k", [], "{}"),
+    ("zamba2-2.7b", "train_4k", [], '{"act": "seq"}'),
+    ("zamba2-2.7b", "prefill_32k", [], "{}"),
+    ("zamba2-2.7b", "decode_32k", [], "{}"),
+    ("whisper-medium", "train_4k", [], "{}"),
+    ("whisper-medium", "prefill_32k", [], "{}"),
+    ("whisper-medium", "decode_32k", [], "{}"),
 )
 # the same pairs on the whole-weight path (the dry run as it stood before
 # tensor parallelism for each family; meta records, not measurements):
@@ -4225,6 +4324,20 @@ WHOLE_WEIGHT_RECORDS = {
         28467609600, 9.188304738273432, 11, 14093107200),
     ("rwkv6-7b", "decode_32k", "data16xmodel16"): (
         18464669760, 0.02823164032955224, 11, 14093107200),
+    # the hybrid and the encoder-decoder with tensor_parallel.FAMILIES =
+    # ("dense", "moe", "vlm", "ssm")
+    ("zamba2-2.7b", "train_4k", "data16xmodel16"): (
+        58395804400, 26.643035193654924, 150, 9653358502.5),
+    ("zamba2-2.7b", "prefill_32k", "data16xmodel16"): (
+        26197156980, 19.07653555729552, 17, 4542233100),
+    ("zamba2-2.7b", "decode_32k", "data16xmodel16"): (
+        55450928308, 0.06956313906985075, 17, 4542233100),
+    ("whisper-medium", "train_4k", "data16xmodel16"): (
+        9330435864, 0.4892015163755224, 169, 3637632727.5),
+    ("whisper-medium", "prefill_32k", "data16xmodel16"): (
+        16037142528, 11.189897059486567, 16, 1321205760),
+    ("whisper-medium", "decode_32k", "data16xmodel16"): (
+        55221985344, 0.0669790370722388, 16, 1321205760),
 }
 
 
@@ -4372,9 +4485,10 @@ def phase_tensor_parallel(dc_records, dry_records, procs,
                           family_records, profile_dir=None):
     """Phase 30: the tensor-parallel step on (1, 1) against the plain
     step, for the dense family (phase 9's run), the MoE family
-    (``TP_MOE``), the VLM and RWKV6 (``TP_VLM_SSM``; olmoe's and rwkv6's
-    losses against phase 18's ``family_records``), and the TP dry
-    runs. A real 'model' axis needs two ranks: NCCL puts
+    (``TP_MOE``), the VLM and RWKV6 (``TP_VLM_SSM``), the hybrid and the
+    encoder-decoder (``TP_HYBRID_ENCDEC``; olmoe's, rwkv6's, zamba2's
+    and whisper's losses against phase 18's ``family_records``), and the
+    TP dry runs. A real 'model' axis needs two ranks: NCCL puts
     no two on one card, and gloo's all-gather of CUDA tensors ends the
     process (PERF.md §7), so the card runs none; the CPU tests run
     eight."""
@@ -4398,7 +4512,8 @@ def phase_tensor_parallel(dc_records, dry_records, procs,
     result = {"granite-8b": _tp_steps(
         mesh, args, dc_arch(), {"stochastic_quant": 12, "block_norms": 9,
                                 "apply_block_mask": 18}, dc_records)}
-    for name, (cut, n_want, want) in {**TP_MOE, **TP_VLM_SSM}.items():
+    for name, (cut, n_want, want) in {**TP_MOE, **TP_VLM_SSM,
+                                      **TP_HYBRID_ENCDEC}.items():
         result[name] = _tp_steps(mesh, args, get_arch(name).replace(**cut),
                                  want, family_records.get(name), n_want,
                                  profile_dir)
@@ -4501,6 +4616,8 @@ def main() -> None:
     log(f"[serve] kernel launches unchanged by phases 19-20: {before}")
     log(f"[serve] summary {json.dumps(serve_rows)}")
     stamp("19-20")
+    # phases 29-30's dry runs (CPU only) run beside phases 21-28
+    dryruns = start_all_dryruns()
     # the scanned engine and sweep lanes
     phase_scan_small()
     scan = phase_scan_main(profile_dir)
@@ -4517,14 +4634,12 @@ def main() -> None:
     registry = phase_registry(asy["deadline_s"])
     stamp("27")
     # the host leftovers: int8 wire format, momentum / AdamW, static bits
-    # phases 29-30's dry runs (CPU only) run beside phases 28-29
-    dryruns = start_all_dryruns()
     host = phase_host_leftovers(mats, dc_records, dc_peak)
     stamp("28")
     # the launch tooling: dry run, the sharded step, remat
     tooling = phase_launch_tooling(dc_records, dc_peak, started=dryruns)
     stamp("29")
-    # tensor parallelism for the dense, MoE, VLM and RWKV6 families
+    # tensor parallelism for every language-model family
     tensor = phase_tensor_parallel(dc_records, tooling["dryrun"],
                                    tooling.pop("more_procs"),
                                    family_records, profile_dir)
@@ -4554,6 +4669,9 @@ def main() -> None:
 
     def vlm_ssm_tp_launches(key):
         return {name: tp_launches(key, name) for name in TP_VLM_SSM}
+
+    def hybrid_encdec_tp_launches(key):
+        return {name: tp_launches(key, name) for name in TP_HYBRID_ENCDEC}
 
     def block_row(name, key, launches, err, extra):
         return {
@@ -4585,6 +4703,8 @@ def main() -> None:
                 moe_tp_launches(name),
             "vlm_ssm_tensor_parallel_step_launches_per_step":
                 vlm_ssm_tp_launches(name),
+            "hybrid_encdec_tensor_parallel_step_launches_per_step":
+                hybrid_encdec_tp_launches(name),
             **extra,
         }
 
@@ -4633,6 +4753,8 @@ def main() -> None:
             moe_tp_launches("stochastic_quant"),
         "vlm_ssm_tensor_parallel_step_launches_per_step":
             vlm_ssm_tp_launches("stochastic_quant"),
+        "hybrid_encdec_tensor_parallel_step_launches_per_step":
+            hybrid_encdec_tp_launches("stochastic_quant"),
     }, block_row("block_norms", "norms", dc_launches["block_norms"],
                  norm_err, {}),
         block_row("apply_block_mask", "mask",

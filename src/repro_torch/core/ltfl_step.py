@@ -288,9 +288,10 @@ def make_fl_train_step(model, optimizer: Optimizer, n_clients: int, *,
 
 
 def _tensor_parallel(model, asked: Optional[bool]) -> bool:
-    """Whether the sharded step computes on weight shards: the dense,
-    MoE, VLM and RWKV6 families do (``models.tensor_parallel.FAMILIES``),
-    the hybrid and encoder-decoder ones compute whole weights."""
+    """Whether the sharded step computes on weight shards: every
+    language-model family does (``models.tensor_parallel.FAMILIES``); a
+    model without a family (the edge ResNet and MLP) computes whole
+    weights, and asked for shards it raises."""
     from repro_torch.models.tensor_parallel import FAMILIES
     cfg = getattr(model, "cfg", None)
     family = getattr(cfg, "family", None)

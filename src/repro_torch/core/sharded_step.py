@@ -17,8 +17,8 @@ axes (the mesh dims of each spec's leading entry) and, for the rest of
 each leaf, the parameters' own layout: the params come in as DTensors
 placed that way.
 
-The dense, MoE, VLM and RWKV6 families (``tensor_parallel``, chosen by
-``make_fl_train_step`` from the model's family) compute on their weight
+Every language-model family (``tensor_parallel``, chosen by
+``make_fl_train_step`` from the model's family) computes on its weight
 shards (``models.tensor_parallel``): the forward and backward passes run
 with each leaf's 'model' shard as it rests, and the collectives over
 'model' are the model's own. An expert leaf (E, D, F) is split on its
@@ -50,9 +50,10 @@ leading dim, which cuts no tile; the router's (D, E) columns (64 / 16 =
 On a 'model' dim of one rank the model computes as on one device, and
 the step is bitwise the unsharded step.
 
-The other families (``tensor_parallel`` False: hybrid and
-encoder-decoder) compute their clients' gradients with whole weights,
-so
+The whole-weight path (``tensor_parallel`` False: the edge models,
+and any model when asked, as the tests and ``chip_smoke.py`` ask for the
+path the tensor-parallel one is held against) computes the clients'
+gradients with whole weights, so
 
 1. each leaf is pruned on its shards for the rank's C_l = C / |client
    axes| clients: ``block_norms`` runs on the rank's shard, the tile
@@ -558,7 +559,7 @@ def make_sharded_step(*, model_loss_grad: Callable, optimizer, n_clients: int,
         return out, opt_state, comp_state, metrics
 
     def whole_step(params, batch, controls, shapes_of):
-        """Steps 1-3 of the other families, with whole weights."""
+        """Steps 1-3 with whole weights."""
         # 1. this rank's clients' pruned leaves
         if do_prune:
             pruned, masks, tiled = prune_shards(

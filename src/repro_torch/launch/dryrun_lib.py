@@ -21,9 +21,8 @@ dense tensor-core peak, HBM3 bandwidth, memory, NVLink 4 bandwidth in
 each direction); they are datasheet figures, not measurements.
 
 What the port's steps do on a mesh. Parameters rest sharded by the rule
-table and are pruned on their shards (``core.sharded_step``). The dense,
-MoE, VLM and RWKV6 families compute on their 'model' shards
-(``models.tensor_parallel.FAMILIES``):
+table and are pruned on their shards (``core.sharded_step``). Every
+family computes on its 'model' shards (``models.tensor_parallel``):
 the train step's clients sit on their mesh axes and each client's rows
 split over the remaining dims but 'model' that divide them; prefill and
 decode split the batch over its 'batch' axes and every other dim but
@@ -32,15 +31,11 @@ a weight also sharded over 'data' under fsdp is gathered over 'data'
 only), and hold the decode cache as the rule table splits it (over kv
 heads, or over head_dim where the head count does not divide; MLA's
 latent cache whole; RWKV6's state over heads, its token-shift states as
-the (B, D) stream). The residual stream follows the rules' activation
-axes: over d_model by default, over the sequence under ``{"act":
-"seq"}``, whole with 'act_embed' None. The hybrid and encoder-decoder
-families compute on
-whole weights: the pruned copies all-gathered, each client's rows also
-split over 'model', prefill and decode on ``full_tensor()`` weights,
-the cache following the batch; for them the activation variants
-(``{"act": "seq"}`` and ``act_*`` entries of ``rules_override``) raise,
-naming the family.
+the (B, D) stream; the hybrid's Mamba2 states over heads and its
+convolution states over 'ssm_fused'). The residual stream follows the
+rules' activation axes: over d_model by default, over the sequence
+under ``{"act": "seq"}``, whole with 'act_embed' None; the
+encoder-decoder's encoder stream is laid out from its own shape.
 
 ``compile_seconds`` is the wall time of the meta run (there is no
 compilation). ``variant`` is a dict of overrides: {"prune": False},
@@ -73,7 +68,7 @@ from repro_torch.launch.mesh import (
 )
 from repro_torch.launch.op_analysis import OpCounter
 from repro_torch.models import build_model
-from repro_torch.models import tensor_parallel as tp
+from repro_torch.models.common import logical_rule_scope
 from repro_torch.models.registry import (
     prefill_batch_struct,
     train_batch_struct,
@@ -137,28 +132,13 @@ class Built:
         self.args_bytes, self.alias_bytes = args_bytes, alias_bytes
 
 
-# logical axes that only ``shard_hint`` reads: activation layouts
-ACTIVATION_AXES = ("act_seq", "act_embed", "act_ff", "act_expert_ff")
-
-
-def _apply_variant_rules(rules, variant, arch: ArchConfig):
+def _apply_variant_rules(rules, variant):
     """The reference's perf-pass overrides: {"act": "seq"} moves the
     residual stream from d_model-sharding to sequence-parallel sharding,
     and {"rules_override": {...}} sets logical -> mesh entries. The
-    activation layouts are the tensor-parallel path
-    (``models.tensor_parallel``) of its ``FAMILIES``; the other
-    families compute on whole weights and local activations, so for
-    them they raise instead of writing a record equal to the
-    baseline's."""
+    activation layouts are those of the tensor-parallel path
+    (``models.tensor_parallel``)."""
     override = variant.get("rules_override") or {}
-    act = [k for k in ("act",) if k in variant] + \
-        [k for k in override if k in ACTIVATION_AXES]
-    if act and arch.family not in tp.FAMILIES:
-        raise ValueError(
-            f"variant {variant}: activation layouts {act} need tensor "
-            f"parallelism, which the port has for the "
-            f"{', '.join(tp.FAMILIES)} families, not {arch.name}'s "
-            f"{arch.family!r}")
     if "act" in variant:
         if variant["act"] != "seq":
             raise ValueError(f"variant act={variant['act']!r}: only "
@@ -168,16 +148,6 @@ def _apply_variant_rules(rules, variant, arch: ArchConfig):
     for k, v in override.items():
         rules[k] = tuple(v) if isinstance(v, list) else v
     return rules
-
-
-def _tp_scope(arch: ArchConfig, mesh, rules):
-    """The scope the steps of the tensor-parallel families run in (their
-    context under ``rules``); a null scope for the others."""
-    import contextlib
-    if arch.family not in tp.FAMILIES:
-        return contextlib.nullcontext()
-    from repro_torch.models.common import logical_rule_scope
-    return logical_rule_scope(rules, mesh)
 
 
 def _meta_input(shape, dtype, mesh, pl):
@@ -212,7 +182,7 @@ def build_train(arch: ArchConfig, shape: ShapeConfig, mesh,
     rules = _apply_variant_rules(
         shlib.base_rules(mesh, fsdp=fsdp,
                          client_axes=client_axes(multi_pod, pod_only)),
-        variant, arch)
+        variant)
     n_clients = n_clients or num_clients(mesh, pod_only)
     if shape.global_batch % n_clients:
         raise ValueError(f"{shape.global_batch} rows on {n_clients} clients")
@@ -265,12 +235,12 @@ def build_train(arch: ArchConfig, shape: ShapeConfig, mesh,
         c_bytes += SEED_BYTES * (scan_rounds - 1)
 
         def fn():
-            with _tp_scope(arch, mesh, rules):
+            with logical_rule_scope(rules, mesh):
                 return scanned(params, (), (), batches, controls,
                                list(range(scan_rounds)))
     else:
         def fn():
-            with _tp_scope(arch, mesh, rules):
+            with logical_rule_scope(rules, mesh):
                 return step(params, (), (), batch, controls, 0)
     return Built(fn, (), rules, n_clients, p_bytes + b_bytes + c_bytes,
                  alias_bytes=p_bytes)
@@ -289,11 +259,10 @@ def _stack_rounds(x, rounds: int):
                               stride=(0,) + tuple(x.stride()))
 
 
-def _serve_layout(mesh, rules, batch_size: int, keep_model: bool = False):
+def _serve_layout(mesh, rules, batch_size: int):
     """Placements of a (B, ...) inference input: B on the 'batch' axes,
-    then on every other mesh dim that divides what is left ('model'
-    excepted with ``keep_model``: tensor parallelism needs every row
-    there)."""
+    then on every other mesh dim but 'model' that divides what is left
+    (tensor parallelism needs every row there)."""
     from torch.distributed.tensor import Replicate, Shard
     spec = shlib.make_pspec((batch_size,), ("batch",), rules, mesh)
     pl = list(shlib.placements(spec, mesh))
@@ -304,7 +273,7 @@ def _serve_layout(mesh, rules, batch_size: int, keep_model: bool = False):
         if isinstance(p, Shard):
             rows //= sizes[i]
     for i, p in enumerate(pl):
-        if keep_model and names[i] == "model":
+        if names[i] == "model":
             continue
         if isinstance(p, Replicate) and rows % sizes[i] == 0:
             pl[i] = Shard(0)
@@ -325,8 +294,7 @@ def _dtensor_bytes(tree) -> int:
 def _inference_params(arch, mesh, variant):
     model = build_model(arch, remat=False)
     fsdp = variant.get("fsdp", shlib.policy_for(arch)["fsdp"])
-    rules = _apply_variant_rules(shlib.base_rules(mesh, fsdp=fsdp), variant,
-                                 arch)
+    rules = _apply_variant_rules(shlib.base_rules(mesh, fsdp=fsdp), variant)
     if variant.get("cache_rules"):
         rules.update(variant["cache_rules"])
     params_abs = model.abstract_params()
@@ -335,12 +303,9 @@ def _inference_params(arch, mesh, variant):
     return model, rules, params
 
 
-def _compute_params(arch, mesh, params):
-    """The weights one rank computes with: the 'model' shards of the
-    tensor-parallel families (gathered over any other dim that shards
-    them), or every weight whole for the other families."""
-    if arch.family not in tp.FAMILIES:
-        return {k: p.full_tensor() for k, p in params.items()}
+def _compute_params(mesh, params):
+    """The weights one rank computes with: their 'model' shards (gathered
+    over any other dim that shards them)."""
     out = {}
     for k, p in params.items():
         pl = shlib.model_placements(p.placements, mesh)
@@ -352,15 +317,14 @@ def _compute_params(arch, mesh, params):
 def build_prefill(arch: ArchConfig, shape: ShapeConfig, mesh,
                   variant: Dict[str, Any]) -> Built:
     model, rules, params = _inference_params(arch, mesh, variant)
-    pl = _serve_layout(mesh, rules, shape.global_batch,
-                       keep_model=arch.family in tp.FAMILIES)
+    pl = _serve_layout(mesh, rules, shape.global_batch)
     bs = prefill_batch_struct(arch, shape.global_batch, shape.seq_len)
     batch = {k: _meta_input(v.shape, v.dtype, mesh, pl)
              for k, v in bs.items()}
 
     def fn():
-        with torch.inference_mode(), _tp_scope(arch, mesh, rules):
-            return model.prefill(_compute_params(arch, mesh, params),
+        with torch.inference_mode(), logical_rule_scope(rules, mesh):
+            return model.prefill(_compute_params(mesh, params),
                                  {k: b.to_local() for k, b in batch.items()})
 
     return Built(fn, (), rules, 0,
@@ -371,8 +335,7 @@ def build_decode(arch: ArchConfig, shape: ShapeConfig, mesh,
                  variant: Dict[str, Any]) -> Built:
     model, rules, params = _inference_params(arch, mesh, variant)
     B = shape.global_batch
-    on_shards = arch.family in tp.FAMILIES
-    pl = _serve_layout(mesh, rules, B, keep_model=on_shards)
+    pl = _serve_layout(mesh, rules, B)
     cache_abs = model.abstract_cache(B, shape.seq_len)
     axes = model.cache_axes()
     csh = shlib.cache_shardings(mesh, rules, model, cache_abs)
@@ -380,15 +343,14 @@ def build_decode(arch: ArchConfig, shape: ShapeConfig, mesh,
     cache = {}
     for k, v in cache_abs.items():
         cpl = list(_on_batch_dim(pl, axes[k].index("batch")))
-        if on_shards:         # the rule table's split over 'model'
-            cpl[md] = csh[k].placements[md]
+        cpl[md] = csh[k].placements[md]   # the rule table's over 'model'
         cache[k] = _meta_input(v.shape, v.dtype, mesh, tuple(cpl))
     tok = _meta_input((B,), torch.int32, mesh, pl)
     pos = _meta_input((B,), torch.int32, mesh, pl)
 
     def fn():
-        with torch.inference_mode(), _tp_scope(arch, mesh, rules):
-            return model.decode_step(_compute_params(arch, mesh, params),
+        with torch.inference_mode(), logical_rule_scope(rules, mesh):
+            return model.decode_step(_compute_params(mesh, params),
                                      tok.to_local(), pos.to_local(),
                                      {k: c.to_local()
                                       for k, c in cache.items()})

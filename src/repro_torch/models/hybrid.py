@@ -23,6 +23,17 @@ dict (a leaf whose dtype the step's output does not share, the conv
 state under float32 weights, is replaced by a new one of the output's
 dtype, as the reference's scan stacks its outputs; the step reads the
 old one).
+
+Tensor parallelism (``models.tensor_parallel``, whose module docstring
+gives the layout): under a context with a 'model' dim of more than one
+rank ``forward``, ``loss``, ``prefill`` and ``decode_step`` compute on
+the rank's shards, each block's input entering as a ``tp.Enter`` of the
+residual stream: the shared block as the dense family's layers, the
+Mamba2 layers on the rank's heads. The logits are the rank's vocabulary
+slice, the loss the vocab-parallel cross-entropy, and the cache the
+rank's part (k/v over kv heads, ``ssm`` over heads, ``conv`` over its
+convolution channels). One body serves both cases: outside a context
+every helper is the identity.
 """
 from __future__ import annotations
 
@@ -32,10 +43,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import mamba2
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.common import (
     ParamSpec,
     abstract_params,
-    apply_norm,
     cross_entropy_loss,
     init_params,
     norm_specs,
@@ -53,6 +64,7 @@ from repro_torch.models.layers import (
     attention_prefill_kv,
     attention_specs,
     attention_train,
+    block_input,
     embed_tokens,
     embedding_specs,
     lm_head,
@@ -107,53 +119,68 @@ class HybridLM:
         for seg in unstack(params, "segments.", self.n_segments):
             yield list(unstack(seg, "", self.per_segment))
 
-    def _zero_states(self, B: int, device):
-        s, _, H, conv_dim = mamba2.mamba_dims(self.cfg)
-        return (torch.zeros((B, H, s.head_dim, s.state_dim),
-                            dtype=torch.float32, device=device),
-                torch.zeros((B, s.conv_width - 1, conv_dim),
+    def _zero_states(self, p: Tree, B: int, device):
+        """Zero states of the Mamba layer ``p`` (its ``mamba.*`` leaves):
+        over the heads and convolution channels whose leaves the rank
+        holds (all of them outside tensor parallelism)."""
+        s = self.cfg.ssm
+        return (torch.zeros((B, p["mamba.a_log"].shape[-1], s.head_dim,
+                             s.state_dim), dtype=torch.float32,
+                            device=device),
+                torch.zeros((B, s.conv_width - 1,
+                             p["mamba.conv_w"].shape[-1]),
                             dtype=torch.bfloat16, device=device))
 
     # ------------------------------------------------------------------ #
+    def _tp(self, seq_len: Optional[int]):
+        """The tensor-parallel region over a residual stream of
+        ``seq_len`` tokens (None: decode)."""
+        return tp.region(seq_len, self.cfg.d_model)
+
     def _shared_block_seq(self, sp: Tree, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        h = apply_norm(cfg, x, sp, "ln1.")
+        h = block_input(cfg, x, sp, "ln1.")
         x = x + attention_train(cfg, subtree(sp, "attn."), h)
-        h2 = apply_norm(cfg, x, sp, "ln2.")
+        h2 = block_input(cfg, x, sp, "ln2.")
         return x + mlp_apply(cfg, subtree(sp, "mlp."), h2)
 
     def _head(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
-        x = apply_norm(self.cfg, x, params, "final_norm.")
+        x = block_input(self.cfg, x, params, "final_norm.")
         return lm_head(self.cfg, subtree(params, "embed."), x)
 
     def forward(self, params: Tree, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (logits (B, S, V), a float32 zero: no auxiliary loss)."""
         cfg = self.cfg
-        x = embed_tokens(cfg, subtree(params, "embed."), batch["tokens"])
-        shared = prefixed("shared.", subtree(params, "shared_block."))
-        for seg in self._segments(params):
-            # one segment's params as one flat dict: the shared block's
-            # and its Mamba layers' (``<i>.<name>``)
-            seg_p = {**shared, **{f"{i}.{k}": v for i, lp in enumerate(seg)
-                                  for k, v in lp.items()}}
-            if self.remat:
-                x, = remat(self._segment_seq, seg_p, x)
-            else:
-                x, = self._segment_seq(seg_p, x)
-        return self._head(params, x), torch.zeros(
-            (), dtype=torch.float32, device=x.device)
+        with self._tp(batch["tokens"].shape[-1]):
+            x = embed_tokens(cfg, subtree(params, "embed."),
+                             batch["tokens"])
+            shared = prefixed("shared.", subtree(params, "shared_block."))
+            segment = tp.bind(self._segment_seq)
+            for seg in self._segments(params):
+                # one segment's params as one flat dict: the shared
+                # block's and its Mamba layers' (``<i>.<name>``)
+                seg_p = {**shared, **{f"{i}.{k}": v
+                                      for i, lp in enumerate(seg)
+                                      for k, v in lp.items()}}
+                if self.remat:
+                    x, = remat(segment, seg_p, x)
+                else:
+                    x, = self._segment_seq(seg_p, x)
+            return self._head(params, x), torch.zeros(
+                (), dtype=torch.float32, device=x.device)
 
     def _segment_seq(self, seg_p: Tree, x: torch.Tensor
                      ) -> Tuple[torch.Tensor]:
         """The shared block, then the segment's Mamba layers from zero
         states (training forward)."""
         cfg = self.cfg
-        zero_ssm, zero_conv = self._zero_states(x.shape[0], x.device)
+        zero_ssm, zero_conv = self._zero_states(subtree(seg_p, "0."),
+                                                x.shape[0], x.device)
         x = self._shared_block_seq(subtree(seg_p, "shared."), x)
         for i in range(self.per_segment):
             lp = subtree(seg_p, f"{i}.")
-            h = apply_norm(cfg, x, lp, "ln.")
+            h = block_input(cfg, x, lp, "ln.")
             out, _, _ = mamba2.mamba_seq(cfg, subtree(lp, "mamba."), h,
                                          zero_ssm, zero_conv)
             x = x + out
@@ -161,8 +188,13 @@ class HybridLM:
 
     def loss(self, params: Tree, batch: Dict[str, torch.Tensor]
              ) -> torch.Tensor:
-        logits, _ = self.forward(params, batch)
-        return cross_entropy_loss(logits[:, :-1, :], batch["labels"][:, 1:])
+        with self._tp(batch["tokens"].shape[-1]):
+            logits, _ = self.forward(params, batch)
+            if logits.shape[-1] != self.cfg.vocab_size:   # vocab-parallel
+                return tp.cross_entropy(logits[:, :-1, :],
+                                        batch["labels"][:, 1:])
+            return cross_entropy_loss(logits[:, :-1, :],
+                                      batch["labels"][:, 1:])
 
     # ------------------------------------------------------------------ #
     def cache_struct(self, batch_size: int, cache_len: int
@@ -203,50 +235,58 @@ class HybridLM:
                     ) -> Tuple[torch.Tensor, Tree]:
         """token (B,) int; pos (B,) absolute position. Writes this
         token's k/v and the new recurrent states into ``cache`` and
-        returns (logits (B, V), cache), the same dict."""
+        returns (logits (B, V), cache), the same dict; under tensor
+        parallelism the cache is the rank's part of it."""
         cfg = self.cfg
-        src = dict(cache)                  # the leaves the step reads
-        x = params["embed.tok"][token]
-        shared = subtree(params, "shared_block.")
-        for s, seg in enumerate(self._segments(params)):
-            h = apply_norm(cfg, x, shared, "ln1.")
-            a, _, _ = attention_decode(cfg, subtree(shared, "attn."), h,
-                                       cache["attn_k"][s],
-                                       cache["attn_v"][s], pos)
-            x = x + a
-            h2 = apply_norm(cfg, x, shared, "ln2.")
-            x = x + mlp_apply(cfg, subtree(shared, "mlp."), h2)
-            for i, lp in enumerate(seg):
-                h_in = apply_norm(cfg, x, lp, "ln.")
-                out, new_ssm, new_conv = mamba2.mamba_step(
-                    cfg, subtree(lp, "mamba."), h_in, src["ssm"][s, i],
-                    src["conv"][s, i])
-                x = x + out
-                store_layer(cache, "ssm", (s, i), new_ssm)
-                store_layer(cache, "conv", (s, i), new_conv)
-        return self._head(params, x), cache
+        with self._tp(None):
+            src = dict(cache)              # the leaves the step reads
+            x = tp.embed(params["embed.tok"], token, cfg.vocab_size)
+            shared = subtree(params, "shared_block.")
+            for s, seg in enumerate(self._segments(params)):
+                h = block_input(cfg, x, shared, "ln1.")
+                a, _, _ = attention_decode(cfg, subtree(shared, "attn."), h,
+                                           cache["attn_k"][s],
+                                           cache["attn_v"][s], pos)
+                x = x + a
+                h2 = block_input(cfg, x, shared, "ln2.")
+                x = x + mlp_apply(cfg, subtree(shared, "mlp."), h2)
+                for i, lp in enumerate(seg):
+                    h_in = block_input(cfg, x, lp, "ln.")
+                    out, new_ssm, new_conv = mamba2.mamba_step(
+                        cfg, subtree(lp, "mamba."), h_in, src["ssm"][s, i],
+                        src["conv"][s, i])
+                    x = x + out
+                    store_layer(cache, "ssm", (s, i), new_ssm)
+                    store_layer(cache, "conv", (s, i), new_conv)
+            return self._head(params, x), cache
 
     def prefill(self, params: Tree, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Tree]:
         """Prompt forward: (logits (B, S, V), the attention k/v per segment
-        in bfloat16 and every layer's recurrent state after the prompt)."""
+        in bfloat16 and every layer's recurrent state after the prompt;
+        under tensor parallelism laid out as ``decode_step`` reads it)."""
         cfg = self.cfg
-        x = embed_tokens(cfg, subtree(params, "embed."), batch["tokens"])
-        zero_ssm, zero_conv = self._zero_states(x.shape[0], x.device)
-        shared = subtree(params, "shared_block.")
-        n, cache = self.n_segments, {}
-        for s, seg in enumerate(self._segments(params)):
-            k, v = attention_prefill_kv(cfg, subtree(shared, "attn."),
-                                        apply_norm(cfg, x, shared, "ln1."))
-            store_layer(cache, "attn_k", s, k.to(CACHE_DTYPE), n)
-            store_layer(cache, "attn_v", s, v.to(CACHE_DTYPE), n)
-            x = self._shared_block_seq(shared, x)
-            for i, lp in enumerate(seg):
-                h_in = apply_norm(cfg, x, lp, "ln.")
-                out, ssm_st, conv_st = mamba2.mamba_seq(
-                    cfg, subtree(lp, "mamba."), h_in, zero_ssm, zero_conv)
-                x = x + out
-                lead = (n, self.per_segment)
-                store_layer(cache, "ssm", (s, i), ssm_st, lead)
-                store_layer(cache, "conv", (s, i), conv_st, lead)
-        return self._head(params, x), cache
+        with self._tp(batch["tokens"].shape[-1]):
+            x = embed_tokens(cfg, subtree(params, "embed."),
+                             batch["tokens"])
+            shared = subtree(params, "shared_block.")
+            n, cache = self.n_segments, {}
+            for s, seg in enumerate(self._segments(params)):
+                k, v = attention_prefill_kv(
+                    cfg, subtree(shared, "attn."),
+                    block_input(cfg, x, shared, "ln1."))
+                store_layer(cache, "attn_k", s, k.to(CACHE_DTYPE), n)
+                store_layer(cache, "attn_v", s, v.to(CACHE_DTYPE), n)
+                x = self._shared_block_seq(shared, x)
+                for i, lp in enumerate(seg):
+                    zero_ssm, zero_conv = self._zero_states(
+                        lp, x.shape[0], x.device)
+                    h_in = block_input(cfg, x, lp, "ln.")
+                    out, ssm_st, conv_st = mamba2.mamba_seq(
+                        cfg, subtree(lp, "mamba."), h_in, zero_ssm,
+                        zero_conv)
+                    x = x + out
+                    lead = (n, self.per_segment)
+                    store_layer(cache, "ssm", (s, i), ssm_st, lead)
+                    store_layer(cache, "conv", (s, i), conv_st, lead)
+            return self._head(params, x), cache

@@ -31,15 +31,21 @@ family).
 given, in place, and returns that same cache (the reference returns an
 updated copy); with a sliding window the cache is a ring buffer.
 
-Under a tensor-parallel context (``models.tensor_parallel``; the
-``DecoderLM`` opens it) the embedding is vocab-parallel, wq /
+Under a tensor-parallel context (``models.tensor_parallel``; every
+language model opens it) the embedding is vocab-parallel, wq /
 wk / wv (and their biases), wi, wi_gate and wi_up are column-parallel,
 both ``wo`` are row-parallel and ``lm_head`` is column-parallel over the
 vocabulary: each function computes on the rank's shards, which it reads
 from the weights' local shapes. A projection whose fused dim cuts a head
 is gathered; the decode cache is split as the rule table says, over kv
 heads, over ``head_dim`` (scores are then partial dot products, summed
-over 'model' before the softmax) or not at all.
+over 'model' before the softmax) or not at all. Cross-attention reads
+its keys and values from an input every rank holds whole
+(``tp.whole_input``: the encoder's output, made whole once by its
+producer so that its gradient is the sum of the ranks' parts), through
+wk and wv split over 'model'. A block's
+input is ``block_input``: the norm of the residual stream, or under a
+context the stream with its norm (``tensor_parallel.Enter``).
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.common import (
     ParamSpec,
     activation,
+    apply_norm,
     apply_rope,
     apply_rope_at,
     rope_tables,
@@ -130,20 +137,41 @@ def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
             v.reshape(B, Skv, kv, hd))
 
 
+def block_input(cfg: ArchConfig, x: torch.Tensor, p: Tree, prefix: str,
+                dtype: Optional[torch.dtype] = None, whole: bool = False):
+    """A block's input: ``norm(x)`` with the norm's leaves ``p[prefix +
+    ...]`` (raised to the type jax's ``norm(x) @ w`` computes in for a
+    weight of ``dtype``), or under tensor parallelism the residual stream
+    with that norm (``tensor_parallel.Enter``; ``whole``: x is whole on
+    every rank), which the layers take in its place."""
+    keys = [k for k in p if k.startswith(prefix)]
+
+    def norm(t, wrap):
+        h = apply_norm(cfg, t, {k: wrap(p[k]) for k in keys}, prefix)
+        return h if dtype is None else h.to(torch.promote_types(h.dtype,
+                                                                dtype))
+    if tp.active() is None:
+        return norm(x, lambda t: t)
+    return tp.Enter(x, norm, whole)
+
+
 def _entered(x) -> "tp.Enter":
     """A layer's input under tensor parallelism: the ``tp.Enter`` a
     ``DecoderLM`` block hands it, or a tensor taken as it is."""
     return x if isinstance(x, tp.Enter) else tp.Enter(x)
 
 
-def _project_qkv_tp(cfg: ArchConfig, p: Tree, xe: "tp.Enter"):
+def _project_qkv_tp(cfg: ArchConfig, p: Tree, xe: "tp.Enter",
+                    kv_e: Optional["tp.Enter"] = None):
     """q, k, v from the rank's column shards (or whole weights), each as
-    (fused features, whether they are the rank's slice)."""
+    (fused features, whether they are the rank's slice); k and v from
+    ``kv_e`` where given (cross-attention)."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bias = cfg.qkv_bias
+    kv_e = xe if kv_e is None else kv_e
     return (tp.column(xe, p["wq"], p["bq"] if bias else None, h * hd),
-            tp.column(xe, p["wk"], p["bk"] if bias else None, kv * hd),
-            tp.column(xe, p["wv"], p["bv"] if bias else None, kv * hd))
+            tp.column(kv_e, p["wk"], p["bk"] if bias else None, kv * hd),
+            tp.column(kv_e, p["wv"], p["bv"] if bias else None, kv * hd))
 
 
 def _heads(t: torch.Tensor, hd: int) -> torch.Tensor:
@@ -225,13 +253,11 @@ def attention_train(cfg: ArchConfig, p: Tree, x: torch.Tensor, *,
                     rope: bool = True,
                     q_offset: int = 0) -> torch.Tensor:
     """Full-sequence attention for training and prefill: self-attention,
-    or cross-attention to ``kv_x`` (B, Skv, D)."""
+    or cross-attention to ``kv_x`` (B, Skv, D; under tensor parallelism
+    a ``tp.Whole``, ``tp.whole_input``'s)."""
     if tp.active() is not None:
-        if kv_x is not None:
-            raise NotImplementedError("cross-attention has no tensor-"
-                                      "parallel path")
         return _attention_tp(cfg, p, _entered(x), causal=causal,
-                             rope=rope, q_offset=q_offset)
+                             rope=rope, q_offset=q_offset, kv_e=kv_x)
     q, k, v = _project_qkv(cfg, p, x, x if kv_x is None else kv_x)
     if rope and cfg.pos_emb == "rope":
         cos, sin = rope_tables(q.shape[1], cfg.head_dim, cfg.rope_theta,
@@ -248,14 +274,15 @@ def attention_train(cfg: ArchConfig, p: Tree, x: torch.Tensor, *,
 
 
 def _attention_tp(cfg: ArchConfig, p: Tree, x: "tp.Enter", *,
-                  causal: bool, rope: bool, q_offset: int) -> torch.Tensor:
-    """Self-attention on the rank's shards. When the rank's q columns are
-    whole heads it attends them against their kv heads (the rank's own,
-    or those cut out of the gathered kv projections); otherwise it
-    gathers q, k and v, attends every head and hands ``wo`` the rank's
-    slice."""
+                  causal: bool, rope: bool, q_offset: int,
+                  kv_e: Optional["tp.Enter"] = None) -> torch.Tensor:
+    """Self- or cross-attention on the rank's shards. When the rank's q
+    columns are whole heads it attends them against their kv heads (the
+    rank's own, or those cut out of the gathered kv projections);
+    otherwise it gathers q, k and v, attends every head and hands ``wo``
+    the rank's slice."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    (q, qs), (k, ks), (v, vs) = _project_qkv_tp(cfg, p, x)
+    (q, qs), (k, ks), (v, vs) = _project_qkv_tp(cfg, p, x, kv_e)
     heads = tp.head_range(h, kv) if qs and ks and vs else None
     if heads is not None:
         lo, hi = heads

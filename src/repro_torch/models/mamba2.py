@@ -20,6 +20,14 @@ form, another order of float32 operations. Dtypes follow the reference:
 the recurrence is float32, ``a_log`` and ``dt_bias`` are upcast before
 ``exp`` and ``softplus``, the convolution runs in the activations' dtype
 and its state comes back in it.
+
+Under tensor parallelism (``models.tensor_parallel``, whose module
+docstring gives the layout) the block input is a ``tp.Enter`` of the
+residual stream: in_proj's column shard and the convolution's channel
+shard are gathered whole as activations, the rank runs the recurrence of
+its heads, and the states it takes and returns are its part (the rank's
+heads, the convolution's channels of its shard). One body serves both
+cases: outside a context every helper is the identity.
 """
 from __future__ import annotations
 
@@ -29,12 +37,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, SSMConfig
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.common import (
     ParamSpec,
-    rms_norm,
     shard_hint,
     time_scan,
 )
+from repro_torch.models.layers import _entered
 
 Tree = Dict[str, torch.Tensor]
 
@@ -78,6 +87,78 @@ def _split_proj(cfg: ArchConfig, proj: torch.Tensor):
     C = proj[..., 2 * d_in + gn:2 * d_in + 2 * gn]
     dt = proj[..., 2 * d_in + 2 * gn:]
     return z, x, B, C, dt
+
+
+def _shards(cfg: ArchConfig, p: Tree) -> Tuple[int, int, bool]:
+    """(lo, n, sharded): this rank's heads [lo, lo + n) and whether
+    in_proj, the convolution and the per-head leaves are its 'model'
+    shards (all heads and whole weights outside tensor parallelism)."""
+    s, d_in, H, conv_dim = mamba_dims(cfg)
+    n = p["a_log"].shape[-1]
+    sharded = n != H
+    size = H // n                    # the shards the heads were split into
+    widths = {"in_proj": (p["in_proj"].shape[-1] * size,
+                          2 * d_in + 2 * s.n_groups * s.state_dim + H),
+              "conv_w": (p["conv_w"].shape[-1] * size, conv_dim),
+              "conv_b": (p["conv_b"].shape[-1] * size, conv_dim),
+              "dt_bias": (p["dt_bias"].shape[-1], n),
+              "d_skip": (p["d_skip"].shape[-1], n),
+              "out_norm": (p["out_norm"].shape[-1], n * s.head_dim),
+              "out_proj": (p["out_proj"].shape[-2], n * s.head_dim)}
+    apart = sorted(k for k, (got, want) in widths.items() if got != want)
+    if apart or H % n:
+        raise NotImplementedError(
+            f"{cfg.name}: the Mamba2 leaves {apart} are not laid out as "
+            f"{n} of its {H} heads")
+    return (tp.active().rank * n if sharded else 0), n, sharded
+
+
+def _mixer_inputs(cfg: ArchConfig, p: Tree, xe: "tp.Enter", conv):
+    """The block input h (the rank's rows of the sequence, or a token),
+    and the rank's heads' z, x, dt and the shared B and C, from the
+    projection (gathered whole from its column shards) and ``conv(w, b,
+    xbc)``, the causal convolution on the rank's channels of x | B | C
+    (all of them outside tensor parallelism), whose output is gathered
+    whole. Also returns the convolution's new state, the rank's heads and
+    whether they are its shard. A gathered tensor is copied out of at
+    once, so that no view keeps a whole copy alive for the backward
+    pass."""
+    s, d_in, _, _ = mamba_dims(cfg)
+    lo, n, sharded = _shards(cfg, p)
+    P, gn = s.head_dim, s.n_groups * s.state_dim
+    heads = slice(lo * P, (lo + n) * P)
+    width = p["conv_w"].shape[-1]
+    c_lo = d_in + (tp.active().rank * width if sharded else 0)
+    h = xe.part()
+    proj = h @ p["in_proj"]
+    if sharded:
+        proj = tp.gather_sum(proj, -1)
+    z, _, _, _, dt = _split_proj(cfg, proj)
+    z, dt = _own(z[..., heads], sharded), _own(dt[..., lo:lo + n], sharded)
+    xbc, new_conv = conv(p["conv_w"], p["conv_b"],
+                         _own(proj[..., c_lo:c_lo + width], sharded))
+    del proj
+    xbc = F.silu(xbc)
+    if sharded:
+        xbc = tp.gather_sum(xbc, -1)
+    return (h, z, _own(xbc[..., heads], sharded), dt,
+            _own(xbc[..., d_in:d_in + gn], sharded),
+            _own(xbc[..., d_in + gn:], sharded), new_conv, n, sharded)
+
+
+def _own(t: torch.Tensor, copy: bool) -> torch.Tensor:
+    """A slice of a gathered tensor as a tensor of its own (``copy``), or
+    as it is."""
+    return t.contiguous() if copy else t
+
+
+def _mixer_out(cfg: ArchConfig, p: Tree, y: torch.Tensor, z: torch.Tensor,
+               sharded: bool) -> torch.Tensor:
+    """``(out_norm(y) * silu(z)) @ out_proj`` back in the residual stream:
+    y over the rank's heads, normalized over all of d_in."""
+    _, d_in, _, _ = mamba_dims(cfg)
+    y = tp.rms_norm(y, p["out_norm"], d_in) * F.silu(z)
+    return tp.row(y, p["out_proj"], d_in, sharded)
 
 
 def _causal_conv_seq(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
@@ -144,24 +225,22 @@ def _chunked_ssd(xdt: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
     return ys.transpose(0, 1).reshape(B_, S, H, P), ssm_state
 
 
-def mamba_seq(cfg: ArchConfig, p: Tree, u: torch.Tensor,
-              ssm_state: torch.Tensor, conv_state: torch.Tensor):
-    """u (B,S,D); ssm_state (B,H,P,N) float32; conv_state (B,K-1,conv_dim).
+def mamba_seq(cfg: ArchConfig, p: Tree, u, ssm_state: torch.Tensor,
+              conv_state: torch.Tensor):
+    """u (B,S,D) the block input (under tensor parallelism its
+    ``tp.Enter``: the whole sequence is read); ssm_state (B,H,P,N)
+    float32 over the rank's heads; conv_state (B,K-1,channels) over the
+    rank's convolution channels.
 
-    Returns (y (B,S,D), new ssm_state, new conv_state)."""
-    s, d_in, H, _ = mamba_dims(cfg)
+    Returns (y (B,S,D) in the residual stream's layout, new ssm_state,
+    new conv_state)."""
+    s, _, _, _ = mamba_dims(cfg)
+    u, z, x, dt, Bc, Cc, new_conv, H, sharded = _mixer_inputs(
+        cfg, p, _entered(u),
+        lambda w, b, xbc: _causal_conv_seq(w, b, xbc, conv_state))
     B_, S, _ = u.shape
-    P, N = s.head_dim, s.state_dim
-
-    proj = u @ p["in_proj"]
-    z, x, Bc, Cc, dt = _split_proj(cfg, proj)
-    xbc = torch.cat([x, Bc, Cc], dim=-1)
-    xbc, new_conv = _causal_conv_seq(p["conv_w"], p["conv_b"], xbc,
-                                     conv_state)
-    xbc = F.silu(xbc)
-    x = xbc[..., :d_in].reshape(B_, S, H, P)
-    Bc = xbc[..., d_in:d_in + s.n_groups * N]                  # (B,S,N) g=1
-    Cc = xbc[..., d_in + s.n_groups * N:]
+    P = s.head_dim
+    x = x.reshape(B_, S, H, P)
 
     A = -torch.exp(p["a_log"].to(torch.float32))               # (H,)
     dt = F.softplus(dt.to(torch.float32)
@@ -183,29 +262,25 @@ def mamba_seq(cfg: ArchConfig, p: Tree, u: torch.Tensor,
         y = y.transpose(0, 1)                                  # (B,S,H,P)
     y = y + p["d_skip"].to(torch.float32)[None, None, :, None] \
         * x.to(torch.float32)
-    y = y.reshape(B_, S, d_in).to(u.dtype)
-    y = rms_norm(y, p["out_norm"]) * F.silu(z)
-    out = y @ p["out_proj"]
+    y = y.reshape(B_, S, H * P).to(u.dtype)
+    out = _mixer_out(cfg, p, y, z, sharded)
     return (shard_hint(out, ("batch", "act_seq", "act_embed")), ssm_state,
             new_conv)
 
 
-def mamba_step(cfg: ArchConfig, p: Tree, u: torch.Tensor,
-               ssm_state: torch.Tensor, conv_state: torch.Tensor):
-    """One token: u (B,D). Returns (y (B,D), new ssm_state, new
-    conv_state)."""
-    s, d_in, H, _ = mamba_dims(cfg)
+def mamba_step(cfg: ArchConfig, p: Tree, u, ssm_state: torch.Tensor,
+               conv_state: torch.Tensor):
+    """One token: u (B,D) (or its ``tp.Enter``), the states as
+    ``mamba_seq``'s. Returns (y (B,D), new ssm_state, new conv_state)."""
+    s, _, _, _ = mamba_dims(cfg)
+    u, z, x, dt, Bc, Cc, new_conv, H, sharded = _mixer_inputs(
+        cfg, p, _entered(u),
+        lambda w, b, xbc: _causal_conv_step(w, b, xbc, conv_state))
     B_ = u.shape[0]
-    P, N = s.head_dim, s.state_dim
-    proj = u @ p["in_proj"]
-    z, x, Bc, Cc, dt = _split_proj(cfg, proj)
-    xbc = torch.cat([x, Bc, Cc], dim=-1)
-    xbc, new_conv = _causal_conv_step(p["conv_w"], p["conv_b"], xbc,
-                                      conv_state)
-    xbc = F.silu(xbc)
-    x = xbc[..., :d_in].reshape(B_, H, P).to(torch.float32)
-    Bc = xbc[..., d_in:d_in + s.n_groups * N].to(torch.float32)
-    Cc = xbc[..., d_in + s.n_groups * N:].to(torch.float32)
+    P = s.head_dim
+    x = x.reshape(B_, H, P).to(torch.float32)
+    Bc = Bc.to(torch.float32)
+    Cc = Cc.to(torch.float32)
 
     A = -torch.exp(p["a_log"].to(torch.float32))
     dt = F.softplus(dt.to(torch.float32)
@@ -215,6 +290,6 @@ def mamba_step(cfg: ArchConfig, p: Tree, u: torch.Tensor,
     ssm_state = a[..., None, None] * ssm_state + dBx
     y = torch.einsum("bhpn,bn->bhp", ssm_state, Cc)
     y = y + p["d_skip"][None, :, None].to(torch.float32) * x
-    y = y.reshape(B_, d_in).to(u.dtype)
-    y = rms_norm(y, p["out_norm"]) * F.silu(z)
-    return y @ p["out_proj"], ssm_state, new_conv
+    y = y.reshape(B_, H * P).to(u.dtype)
+    return _mixer_out(cfg, p, y, z, sharded), ssm_state, new_conv
+

@@ -1,5 +1,6 @@
-"""Tensor parallelism on the 'model' mesh dim for the dense, MoE and VLM
-decoder families and RWKV6 (``FAMILIES``).
+"""Tensor parallelism on the 'model' mesh dim for every language-model
+family (``FAMILIES``): the dense, MoE and VLM decoders, RWKV6, the
+Mamba2 hybrid and the encoder-decoder.
 
 Makes concrete what the reference leaves to GSPMD. Its rule table
 (``repro.launch.sharding`` lines 38-91) puts every dense weight dim --
@@ -81,6 +82,47 @@ scattered onto wr's columns before the gate multiplies them (``gate``).
 The decode state splits over heads; the token-shift states follow the
 (B, D) stream (``embed_part`` / ``embed_whole``).
 
+Mamba2 (``models.mamba2``, the hybrid's backbone): the rule table puts
+in_proj's fused z | x | B | C | dt columns and the convolution's x | B |
+C channels ('ssm_fused') on 'model' in contiguous shards that cut across
+the five parts and the heads (zamba2-2.7b on 16: 653 of 10,448 columns,
+328 of 5,248 channels), while a_log, dt_bias, d_skip, out_norm and
+out_proj's rows ('heads', 'ssm_fused' of d_in) split as the heads do.
+So the projection is column-parallel and its output is gathered whole as
+an activation (``gather_sum``: each rank's consumers give a part of its
+gradient); the depthwise convolution runs on the rank's contiguous
+channels of x | B | C (the decode cache's ``conv`` split the same way)
+and its output, after the SiLU, is gathered whole again; each rank then
+takes its heads' z, x and dt and all of B and C (one group, shared by
+every head) and runs the recurrence of its heads. ``out_norm`` spans all
+of d_in (``rms_norm``, as RWKV6's ``ln_x``), and out_proj is row-
+parallel. No weight is gathered.
+
+The hybrid (``models.hybrid``): the shared attention + MLP block is the
+dense family's blocks; its leaves are one set used at every call site,
+so each rank's shard sums its gradient over the sites. The decode cache
+splits the attention k/v over kv heads, ``ssm`` over heads and ``conv``
+over 'ssm_fused'.
+
+The encoder-decoder (``models.encdec``): the encoder is the dense
+family's blocks (non-causal, no rope) over its own residual stream,
+laid out from its own global shape (whisper-medium's 1,500 frames do
+not split over 16 under {"act": "seq"} and stay whole). Its first
+block reads the frames and positions whole, as every rank holds them
+(``Enter(..., whole=True)``), and lays the stream out from them: the
+ranks' parts of their gradient are summed before the bfloat16 frames
+round it, as one card rounds it. The encoder's
+output enters every cross-attention whole: ``Enter.part`` of the stream
+after the final norm makes it whole once (``copy_in`` or ``gather_sum``),
+so every layer's k and v columns add their parts into one collective in
+the backward pass. Cross-attention's q is column-parallel from the
+decoder stream, k and v column-parallel over the rank's heads from the
+encoder's output, wo row-parallel; in decode the rank's heads attend
+the cross cache split over kv heads. The learned positions are whole
+and each rank adds its part of them as the stream lays it out; a
+vocabulary that 'model' does not divide (whisper's 51,865) leaves the
+embedding and head whole, and the loss is the whole cross-entropy.
+
 Multi-head latent attention (``models.mla``): wq, w_uk and w_uv are
 column-parallel over heads (heads_fused), wo row-parallel; w_dkv and
 kv_norm (kv_lora) are replicated, so the latent is computed whole and
@@ -107,7 +149,7 @@ The context (``TPContext``) is the mesh, the 'model' dim, this rank's
 coordinate on it, its size and the rules (by default the reference's
 ``base_rules``). ``scope`` enters it; ``models.common.logical_rule_scope``
 does, and so do the sharded step and the dry run. ``region`` marks the
-model code that honours it (``DecoderLM`` and ``RWKVLM``), and
+model code that honours it (every language model), and
 fixes the residual stream's layout from its global shape; ``bind``
 carries both into a layer that ``remat`` recomputes in the backward
 pass. Outside them, or on a 'model' dim of size 1, ``active()`` is None
@@ -122,8 +164,8 @@ import torch
 import torch.nn.functional as F
 
 # the families whose models compute on their 'model' shards ("ssm" is
-# RWKV6's, ``models.rwkv6.RWKVLM``)
-FAMILIES = ("dense", "moe", "vlm", "ssm")
+# RWKV6's, ``models.rwkv6.RWKVLM``): every language-model family
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
 
 class TPContext(NamedTuple):
@@ -414,26 +456,29 @@ class Enter:
     stream is normalized once and enters ``part`` through ``copy_in``; a
     sequence-split one is normalized on its shard (scales through
     ``copy_in``: the shard's gradient is a part) and then gathered; a
-    d_model-split one is gathered and then normalized."""
+    d_model-split one is gathered and then normalized. With ``whole``,
+    ``x`` is whole on every rank (a region's input before it is laid
+    out, the encoder's frames), and enters as an unsplit stream does."""
 
     def __init__(self, x: torch.Tensor,
-                 norm: Optional[Callable] = None):
+                 norm: Optional[Callable] = None, whole: bool = False):
         self.x = x
         self.norm = norm or (lambda t, wrap: t)
+        self.split = None if whole else _STATE["split"]
         self._h = self._part = self._whole = None
 
     def _local(self) -> torch.Tensor:
         """norm(x) on the rank's rows (an unsplit or sequence-split
         stream)."""
         if self._h is None:
-            c, s = active(), _STATE["split"]
+            c, s = active(), self.split
             wrap = copy_in if c is not None and s == -2 else _same
             self._h = self.norm(self.x, wrap)
         return self._h
 
     def part(self) -> torch.Tensor:
         if self._part is None:
-            c, s = active(), _STATE["split"]
+            c, s = active(), self.split
             if c is None:
                 self._part = self._local()
             elif s is None:
@@ -447,7 +492,7 @@ class Enter:
 
     def whole(self) -> torch.Tensor:
         if self._whole is None:
-            c, s = active(), _STATE["split"]
+            c, s = active(), self.split
             if c is None or s is None:
                 self._whole = self._local()
             elif s == -2:
@@ -455,6 +500,28 @@ class Enter:
             else:
                 self._whole = self.norm(_Gather.apply(self.x, c, s), _same)
         return self._whole
+
+
+class Whole(Enter):
+    """An input every rank holds whole, its gradient summed over the ranks
+    by its producer (the encoder-decoder's encoder output, ``Enter.part``
+    of its stream): column-parallel consumers read it as it is. A whole
+    weight may not read it: its gradient would reach the input alike on
+    every rank, and the producer's sum would count it once a rank."""
+
+    def part(self) -> torch.Tensor:
+        return self.x
+
+    def whole(self) -> torch.Tensor:
+        raise NotImplementedError(
+            "an input made whole for column-parallel consumers read "
+            "through a whole weight")
+
+
+def whole_input(t: torch.Tensor):
+    """``t``, whole on every rank, as the layers take it: a ``Whole``
+    under tensor parallelism, ``t`` itself otherwise."""
+    return t if active() is None else Whole(t)
 
 
 def _same(t: torch.Tensor) -> torch.Tensor:

@@ -26,9 +26,10 @@ is given and returns that same dict: a caller must not reuse a cache it
 has passed in as the state before the step.
 
 Tensor parallelism (``models.tensor_parallel``) covers the dense, MoE
-and VLM families (``tensor_parallel.FAMILIES``): under a context with a
-'model' dim of more than one rank ``forward``, ``loss``, ``prefill`` and
-``decode_step`` compute on the rank's weight shards (the logits are the
+and VLM families, as every family of ``tensor_parallel.FAMILIES``:
+under a context with a 'model' dim of more than one rank ``forward``,
+``loss``, ``prefill`` and ``decode_step`` compute on the rank's weight
+shards (the logits are the
 rank's slice of the vocabulary, the loss the vocab-parallel
 cross-entropy, the cache the rank's part as the rule table splits it;
 MLA's latent cache is whole). The VLM's residual stream is the image
@@ -48,7 +49,6 @@ from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.common import (
     ParamSpec,
     abstract_params,
-    apply_norm,
     cross_entropy_loss,
     init_params,
     norm_specs,
@@ -62,6 +62,7 @@ from repro_torch.models.common import (
 from repro_torch.models.convert import in_leaf_order
 from repro_torch.models.layers import (
     attention_decode,
+    block_input,
     attention_prefill_kv,
     attention_specs,
     attention_train,
@@ -136,19 +137,6 @@ class DecoderLM:
         computes on weight shards under a context."""
         return tp.region(seq_len, self.cfg.d_model)
 
-    def _norm(self, x: torch.Tensor, p: Tree, prefix: str):
-        """A block's input: ``norm(x)``, or under tensor parallelism the
-        residual stream with its norm (``tensor_parallel.Enter``), which
-        the layers take in its place."""
-        if tp.active() is None:
-            return apply_norm(self.cfg, x, p, prefix)
-        keys = [k for k in p if k.startswith(prefix)]
-
-        def norm(t, wrap):
-            return apply_norm(self.cfg, t, {k: wrap(p[k]) for k in keys},
-                              prefix)
-        return tp.Enter(x, norm)
-
     def _layers(self, params: Tree):
         """Every layer's params in order: the prefix (dense) layers, then
         views of the stacked ones."""
@@ -180,12 +168,12 @@ class DecoderLM:
     def _train_block(self, lp: Tree, x: torch.Tensor
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         cfg = self.cfg
-        h = self._norm(x, lp, "ln1.")
+        h = block_input(cfg, x, lp, "ln1.")
         if cfg.mla is not None:
             x = x + mla_mod.mla_train(cfg, subtree(lp, "attn."), h)
         else:
             x = x + attention_train(cfg, subtree(lp, "attn."), h)
-        h2 = self._norm(x, lp, "ln2.")
+        h2 = block_input(cfg, x, lp, "ln2.")
         ffn = subtree(lp, "ffn.")
         if "router" in ffn:                # MoE layer (prefix layers are dense)
             f, aux = moe_mod.moe_apply(cfg, ffn, h2)
@@ -200,7 +188,7 @@ class DecoderLM:
         return (x,) if aux is None else (x, aux)
 
     def _head(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
-        x = self._norm(x, params, "final_norm.")
+        x = block_input(self.cfg, x, params, "final_norm.")
         return lm_head(self.cfg, subtree(params, "embed."), x)
 
     def forward(self, params: Tree, batch: Dict[str, torch.Tensor]
@@ -270,7 +258,7 @@ class DecoderLM:
     def _decode_block(self, lp: Tree, x: torch.Tensor, cache_l: Tree,
                       pos: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        h = self._norm(x, lp, "ln1.")
+        h = block_input(cfg, x, lp, "ln1.")
         if cfg.mla is not None:
             a, _ = mla_mod.mla_decode(cfg, subtree(lp, "attn."), h,
                                       cache_l["ckv"], pos)
@@ -278,7 +266,7 @@ class DecoderLM:
             a, _, _ = attention_decode(cfg, subtree(lp, "attn."), h,
                                        cache_l["k"], cache_l["v"], pos)
         x = x + a
-        h2 = self._norm(x, lp, "ln2.")
+        h2 = block_input(cfg, x, lp, "ln2.")
         ffn = subtree(lp, "ffn.")
         if "router" in ffn:
             return x + moe_mod.moe_apply_token(cfg, ffn, h2)
@@ -306,7 +294,7 @@ class DecoderLM:
     # ------------------------------------------------------------------ #
     def _cache_entry(self, lp: Tree, x: torch.Tensor) -> Tree:
         cfg = self.cfg
-        h = self._norm(x, lp, "ln1.")
+        h = block_input(cfg, x, lp, "ln1.")
         if cfg.mla is not None:
             return {"ckv": mla_mod.mla_prefill_cache(
                 cfg, subtree(lp, "attn."), h).to(CACHE_DTYPE)}

@@ -13,19 +13,21 @@ whisper-medium x prefill_32k, and train_4k as a scanned segment of 2
 rounds with about twice the single round's FLOPs), and its documented
 skip prints SKIP and exits 0. No jax is imported.
 
-The dense, MoE, VLM and RWKV6 families compute on their 'model' shards
-(tensor parallelism): their activation variants ({"act": "seq"},
-'act_*' overrides) lay out the residual stream and give records of their
-own. granite-8b x train_4k under {"act": "seq"} peaks below the
-whole-weight step's record for the same pair (391,199,604,656 bytes a
-device, the port's dry run before tensor parallelism), and so does
-deepseek-v2-lite-16b x train_4k (412,236,220,148 bytes). The hybrid and
-encoder-decoder families still raise for them.
+Every family computes on its 'model' shards (tensor parallelism): the
+activation variants ({"act": "seq"}, 'act_*' overrides) lay out the
+residual stream and give records of their own; the encoder-decoder's
+encoder stream is laid out from its own shape (whisper-medium's 1,500
+frames split over 4 under {"act": "seq"}, and stay whole over 16).
+granite-8b x train_4k under {"act": "seq"} peaks below the whole-weight
+step's record for the same pair (391,199,604,656 bytes a device, the
+port's dry run before tensor parallelism), and so does
+deepseek-v2-lite-16b x train_4k (412,236,220,148 bytes).
 
 The recurrent families' train_4k (4,096 steps a layer, counted from four
 of them: tests/test_torch_dryrun_scan.py) finish within 120 s each:
 rwkv6-7b under {"act": "seq"} (tensor parallel over heads, the sequence
-gathered whole for the recurrence) and zamba2-2.7b (whole weights).
+gathered whole for the recurrence) and zamba2-2.7b (tensor parallel over
+the Mamba2 heads and the shared block's).
 """
 import json
 import os
@@ -177,26 +179,6 @@ def test_pruning_kernels_run_on_shards(block):
         dist.destroy_process_group()
 
 
-OTHER_FAMILIES = {"hybrid": "zamba2-2.7b", "encdec": "whisper-medium"}
-
-
-@pytest.mark.parametrize("family", list(OTHER_FAMILIES))
-@pytest.mark.parametrize("variant", VARIANTS)
-def test_activation_variants_raise(variant, family):
-    # the families without tensor parallelism (hybrid, encoder-decoder)
-    # lay out no activation:
-    # these variants would write records equal to the baseline's
-    from repro_torch import configs
-    from repro_torch.launch import dryrun_lib
-    from repro_torch.launch import sharding as sh
-    from repro_torch.launch.mesh import AbstractMesh
-    mesh = AbstractMesh((("data", 2), ("model", 4)))
-    arch = configs.get_arch(OTHER_FAMILIES[family])
-    with pytest.raises(ValueError, match="tensor parallelism.*"
-                       + arch.family):
-        dryrun_lib._apply_variant_rules(sh.base_rules(mesh), variant, arch)
-
-
 @pytest.mark.parametrize("i", range(len(VARIANTS)))
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-lite-16b"])
 def test_activation_variants_lay_out_the_moe_family(arch, i):
@@ -212,7 +194,7 @@ def test_activation_variants_lay_out_the_moe_family(arch, i):
     mesh = AbstractMesh((("data", 2), ("model", 4)))
     cfg = configs.get_arch(arch)
     base = sh.base_rules(mesh)
-    rules = dryrun_lib._apply_variant_rules(dict(base), VARIANTS[i], cfg)
+    rules = dryrun_lib._apply_variant_rules(dict(base), VARIANTS[i])
     changed = {k for k in rules if rules[k] != base[k]}
     assert changed == [{"act_seq", "act_embed"}, {"act_embed"},
                        {"act_seq", "d_ff"}][i]
@@ -245,7 +227,7 @@ def test_activation_variants_lay_out_the_vlm_and_rwkv_families(arch, i):
     mesh = AbstractMesh((("data", 2), ("model", 4)))
     cfg = configs.get_arch(arch)
     base = sh.base_rules(mesh)
-    rules = dryrun_lib._apply_variant_rules(dict(base), VARIANTS[i], cfg)
+    rules = dryrun_lib._apply_variant_rules(dict(base), VARIANTS[i])
     changed = {k for k in rules if rules[k] != base[k]}
     assert changed == [{"act_seq", "act_embed"}, {"act_embed"},
                        {"act_seq", "d_ff"}][i]
@@ -266,6 +248,46 @@ def test_activation_variants_lay_out_the_vlm_and_rwkv_families(arch, i):
             assert ("model" in s.spec) == (i != 2), (k, s.spec)
 
 
+@pytest.mark.parametrize("i", range(len(VARIANTS)))
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "whisper-medium"])
+def test_activation_variants_lay_out_the_hybrid_and_encdec_families(arch,
+                                                                      i):
+    # the hybrid's and the encoder-decoder's variants resolve to rules
+    # that move the residual stream's split and keep the heads (and the
+    # Mamba2 layers' fused columns, channels and rows) on 'model'; the
+    # encoder's stream of 1,500 frames is laid out from its own shape:
+    # over the sequence on 'model' 4 (375 a rank), whole on 16 under
+    # {"act": "seq"} (1,500 does not divide), back on d_model where
+    # 'act_embed' keeps 'model'
+    from repro_torch import configs
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import build_model
+    from repro_torch.models.tensor_parallel import TPContext
+    cfg = configs.get_arch(arch)
+    for size, enc in ((4, [-2, None, -2]), (16, [None, None, -1])):
+        mesh = AbstractMesh((("data", 2), ("model", size)))
+        base = sh.base_rules(mesh)
+        rules = dryrun_lib._apply_variant_rules(dict(base), VARIANTS[i])
+        changed = {k for k in rules if rules[k] != base[k]}
+        assert changed == [{"act_seq", "act_embed"}, {"act_embed"},
+                           {"act_seq", "d_ff"}][i]
+
+        def split(r, seq):
+            ctx = TPContext(mesh, 1, 0, size, r)
+            return ctx.on_model((seq, cfg.d_model), ("act_seq", "act_embed"))
+        assert split(base, 4096) == -1
+        assert split(rules, 4096) == [-2, None, -2][i]
+        if cfg.family == "encdec":
+            assert split(base, cfg.encoder_seq) == -1
+            assert split(rules, cfg.encoder_seq) == enc[i]
+    psh = sh.param_shardings(mesh, build_model(cfg), rules)
+    for k, s in psh.items():
+        if k.split(".")[-2] in ("attn", "self_attn", "cross_attn", "mamba"):
+            assert "model" in s.spec, (k, s.spec)
+
+
 @pytest.mark.parametrize("name", ["rwkv_seq", "zamba2"])
 def test_recurrent_train_pairs_finish(runs, name):
     # C1: the step-by-step recurrences of train_4k, counted from four
@@ -277,8 +299,7 @@ def test_recurrent_train_pairs_finish(runs, name):
     assert rec["flops_per_device"] > rec["model_flops"] > 0
     assert rec["bytes_per_device"] > rec["args_bytes"] > 0
     assert rec["compile_seconds"] < TIMEOUT[name]
-    if name == "rwkv_seq":                    # tensor parallel over heads
-        assert rec["collective_count"] > 0
+    assert rec["collective_count"] > 0        # tensor parallel over heads
 
 
 def test_moe_dry_run_peaks_below_the_whole_weight_record(runs):
@@ -298,7 +319,7 @@ def test_activation_variants_lay_out_the_dense_family(runs, i):
     mesh = AbstractMesh((("data", 2), ("model", 4)))
     arch = configs.get_arch("granite-8b")
     base = sh.base_rules(mesh)
-    rules = dryrun_lib._apply_variant_rules(dict(base), VARIANTS[i], arch)
+    rules = dryrun_lib._apply_variant_rules(dict(base), VARIANTS[i])
     assert rules != base
     (rec,) = _ok(runs[f"act{i}"])
     (one,) = _ok(runs["train"])
@@ -312,13 +333,11 @@ def test_activation_variants_lay_out_the_dense_family(runs, i):
 
 
 def test_parameter_rules_override_applies():
-    from repro_torch import configs
     from repro_torch.launch import dryrun_lib
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.mesh import AbstractMesh
     mesh = AbstractMesh((("data", 2), ("model", 4)))
     rules = dryrun_lib._apply_variant_rules(
         sh.base_rules(mesh), {"rules_override": {"d_ff": None,
-                                                 "embed": ["data"]}},
-        configs.get_arch("granite-8b"))
+                                                 "embed": ["data"]}})
     assert rules["d_ff"] is None and rules["embed"] == ("data",)

@@ -1,6 +1,5 @@
-"""Tensor parallelism over 'model' for the dense, MoE and VLM decoder
-families and RWKV6 (``models.tensor_parallel``) on a real (2, 4) mesh of
-8 gloo ranks:
+"""Tensor parallelism over 'model' for every language-model family
+(``models.tensor_parallel``) on a real (2, 4) mesh of 8 gloo ranks:
 clients on 'data', weights on 'model' by the rule table, each rank
 computing on its shards. Held against the port's unsharded step and the
 reference's unsharded ``make_fl_train_step`` (its own mesh tests fail on
@@ -47,7 +46,29 @@ Reduced configs (``reduce_for_smoke``, float32, 2 layers, width 256):
   the token-shift states as the stream lays them out, and decoding
   continues from it. Block 8, so that u (8 x 32) is pruned by tiles, on
   each rank's 2 heads by sub-tiles of 2 x 8 (as the full-width u, 64 x
-  64 at block 32, is on its 4 rows a rank at 'model' 16).
+  64 at block 32, is on its 4 rows a rank at 'model' 16);
+* zamba2-2.7b ("zamba2") at 4 layers, two segments of two Mamba2 layers
+  (16 heads of 32, four a rank), so the shared attention block (4 heads
+  of 64, one a rank) runs at two sites and its gradient sums over them
+  on each rank's shard. in_proj's 1,072 fused columns and the
+  convolution's 544 channels split 268 and 136 a rank, which cut across
+  z | x | B | C | dt and the heads' 128 channels a rank, as production's
+  shards do: the projection and the convolution's output are gathered
+  whole as activations, the recurrence runs on the rank's heads, and
+  prefill's cache is the rank's heads' state and its convolution
+  channels. in_proj and conv_w are pruned by magnitude at block 64, as
+  at full width at block 32;
+* whisper-medium ("whisper") with a vocabulary of 510, which 4 does not
+  divide: the embedding and head are whole and the loss is the whole
+  cross-entropy, as for the published 51,865 on 16. The encoder (16
+  frames, {"act": "seq"} splitting them 4 a rank) and the decoder (4
+  heads, one a rank) each lay out their own stream; cross-attention
+  reads the encoder's output, made whole once, and decode the cross
+  cache's rank's heads. The reference's encoder takes its frames in
+  bfloat16 and its ``lax.scan`` cannot carry the float32 stream that
+  float32 layers make of them, so the reference's ``encode`` is run as
+  a Python loop over its own layer functions (``_ref_model``) and every
+  side is float32.
 
 The routing of the MoE configs has no near-ties on these inputs (each
 token's k + 1 largest router probabilities apart by more than 1e-6, on
@@ -57,7 +78,9 @@ of the tensor-parallel sums cannot reorder them.
 The step runs with the LTFL quantizer under the baseline layout (the
 residual stream split over d_model) and unquantized under all three
 layouts: over d_model, over the sequence ({"act": "seq"}) and whole
-('act_embed' None). At block 64 the 32- and 48-wide kv and q shards cut
+('act_embed' None); deepseek_cut, zamba2 and whisper run fewer
+(``torch_tp_worker.ONLY``, whose comment says why: zamba2 unquantized
+only, whisper all but the sequence layout). At block 64 the 32- and 48-wide kv and q shards cut
 tiles, so their norms come from sub-tiles. The ranks get their inputs
 through a file and run ``torch_tp_worker.run_rank`` (no jax there).
 
@@ -77,12 +100,15 @@ states, float32 here) rel 1e-5 (9.0e-7); 4 decode steps from it, each
 side from its own cache, rel 3e-4 (2.0e-4, deepseek_cut, whose
 unsharded decode is as far from the reference's: the bf16 cache; phi
 4.6e-5, rwkv 6.4e-6): ``torch_parity``'s bounds. The reference's
-prefill and decode step run under ``jax.jit``. On a 'model' dim of one
+prefill and decode step run under ``jax.jit``. zamba2 and whisper (the
+worst seen): the loss 7.2e-8 relative to the reference's, unquantized
+weights 1.4e-7, the prefill's logits 2.1e-6 and zamba2's float32 states
+2.4e-6, decode 3.2e-5. On a 'model' dim of one
 rank the step is bitwise the unsharded step, with the quantizer and the
 int8 wire format.
 
-The hybrid and encoder-decoder families have no tensor-parallel path:
-asked for one they raise, naming their family.
+Every language model takes the tensor-parallel path; a model without a
+family (the edge MLP and ResNet) raises when asked for it.
 """
 import math
 import os
@@ -105,8 +131,8 @@ from repro_torch.models import build_model, params_from_numpy   # noqa: E402
 from repro_torch.optim import sgd                               # noqa: E402
 from torch_tp_worker import (                                   # noqa: E402
     C, CONFIGS, CONTROLS, LR, ROWS, SEED, SEQ, STEPS, block, cases,
-    controls, decode_cache, images, make_step, port, port_config, reduced,
-    run_rank, source, stream_len)
+    controls, decode_cache, extra_inputs, make_step, port, port_config,
+    reduced, run_rank, source, stream_len)
 
 from torch_parity import (                                      # noqa: E402
     CHAIN_TOL,
@@ -127,7 +153,7 @@ TIE_GAP = 1e-6
 # leaf pruned by magnitude gathers its float32 importance, which an
 # all-gather's shape and dtype cannot tell from a float32 router)
 GATHER_BLOCK = {"granite": 64, "olmoe": 8, "deepseek": 8, "phi": 64,
-                "rwkv": 8}
+                "rwkv": 8, "zamba2": 4, "whisper": 64}
 # gathers of the TP step that share their element count and dtype with a
 # 'model'-sharded leaf and are not weights: deepseek's float32 tile-norm
 # grids of w_gate / w_up and of w_down at block 8 (2,048 values, as many
@@ -209,16 +235,50 @@ def _ref_config(name):
     return reduced(reduce_for_smoke(get_arch(CONFIGS[name][0])), name)
 
 
+def _ref_model(name):
+    """The reference's model of ``name``. For the encoder-decoder its
+    ``encode`` runs as a Python loop over its own layer functions: its
+    ``lax.scan`` cannot carry the float32 stream that float32 layers make
+    of the bfloat16 frames. The frames' bfloat16 roundings (the frames and
+    positions, their sum, the first norm's output, and the gradients at
+    each) are explicit ``lax.reduce_precision`` on float32 values: XLA's
+    CPU backend keeps excess precision inside fused bfloat16 ops
+    (``torch_parity``), and these roundings it keeps, forward and in the
+    gradient, where the port rounds."""
+    model = ref_build_model(_ref_config(name))
+    if model.cfg.family != "encdec":
+        return model
+    from repro.models.common import apply_norm
+    from repro.models.layers import attention_train, mlp_apply
+    cfg = model.cfg
+
+    def bf16(t):
+        return jax.lax.reduce_precision(t, exponent_bits=8, mantissa_bits=7)
+
+    def encode(params, frames):
+        pos = params["embed"]["pos"][:frames.shape[1]]
+        x = bf16(bf16(frames) + bf16(pos)[None])
+        for i in range(cfg.encoder_layers):
+            lp = jax.tree_util.tree_map(lambda t: t[i], params["encoder"])
+            first = bf16 if i == 0 else (lambda t: t)
+            h = first(apply_norm(cfg, first(x), lp["ln1"]))
+            x = first(x) + attention_train(cfg, lp["attn"], h,
+                                           causal=False, rope=False)
+            x = x + mlp_apply(cfg, lp["mlp"], apply_norm(cfg, x, lp["ln2"]))
+        return apply_norm(cfg, x, params["enc_final_norm"])
+    model.encode = encode
+    return model
+
+
 def _ref_batch(name, tokens, labels=False, client=None):
-    """The reference's batch of ``tokens`` (and the VLM's image
-    embeddings; with ``client``, that client's rows)."""
+    """The reference's batch of ``tokens`` (and the family's extra
+    inputs; with ``client``, that client's rows)."""
     batch = {"tokens": tokens}
     if labels:
         batch["labels"] = tokens
-    img = images(port_config(name))
-    if img is not None:
-        batch["image_embeds"] = jnp.asarray(
-            img if client is None else img[client], jnp.float32)
+    for k, v in extra_inputs(port_config(name)).items():
+        batch[k] = jnp.asarray(v if client is None else v[client],
+                               jnp.float32)
     return batch
 
 
@@ -242,7 +302,7 @@ def test_tp_step_matches_the_reference(ranks, inputs, name):
     layout, uplink = cases(name)[0]
     tree, tokens, _, _ = inputs[name]
     _, _, params, _ = port(name, tree, tokens)
-    ref_step = jax.jit(ref_make_step(ref_build_model(_ref_config(name)),
+    ref_step = jax.jit(ref_make_step(_ref_model(name),
                                      ref_sgd(LR), C,
                                      prune_block=block(name),
                                      quantize=uplink == "ltfl"))
@@ -261,20 +321,20 @@ def test_tp_step_matches_the_reference(ranks, inputs, name):
 def test_tp_prefill_and_decode_match_the_reference(ranks, inputs, name):
     tree, tokens, steps, _ = inputs[name]
     cfg = port_config(name)
-    ref_model = ref_build_model(_ref_config(name))
+    ref_model = _ref_model(name)
     rp = as_jax(tree, jnp.float32)
     logits, pcache = jax.jit(ref_model.prefill)(
         rp, _ref_batch(name, jnp.asarray(tokens[0], jnp.int32), client=0))
     got = ranks[name, "serve"]
     assert rel(got["prefill"].numpy(), np.asarray(logits)) <= TOL
-    if cfg.family == "ssm":
-        # RWKV6's recurrent state (float32) and token-shift states
-        for k, v in pcache.items():
+    assert sorted(got["cache"]) == sorted(pcache)
+    for k, v in pcache.items():
+        if v.dtype == jnp.bfloat16:       # k/v entries
+            assert_cache_close(cache_to_numpy({k: got["cache"][k]}),
+                               cache_to_numpy({k: v}), name)
+        else:   # recurrent and token-shift states (float32 here)
             assert rel(got["cache"][k].float().numpy(),
                        np.asarray(v, np.float32)) <= TOL, k
-    else:
-        assert_cache_close(cache_to_numpy(got["cache"]),
-                           cache_to_numpy(pcache), name)
     n = stream_len(cfg)
     cache = decode_cache(build_model(cfg),
                          ref_model.init_cache(ROWS, n + STEPS),
@@ -362,11 +422,11 @@ def test_no_model_shard_is_gathered_whole(name):
 
 
 @pytest.mark.parametrize("name", ["granite", "olmoe", "deepseek", "phi",
-                                  "rwkv"])
+                                  "rwkv", "zamba2", "whisper"])
 def test_one_rank_model_dim_is_the_unsharded_step(inputs, name):
-    # a (1, 1) mesh of one gloo rank: the TP path (dense, MoE, VLM and
-    # RWKV6 families) is bitwise the unsharded step, with the LTFL
-    # quantizer and with the int8 wire format
+    # a (1, 1) mesh of one gloo rank: the TP path (every family) is
+    # bitwise the unsharded step, with the LTFL quantizer and with the
+    # int8 wire format
     import torch.distributed as dist
 
     from repro_torch.launch import sharding as sh
@@ -474,14 +534,31 @@ def test_moe_routing_has_no_near_ties(monkeypatch, inputs, name):
     assert seen["gap"] > TIE_GAP and seen["uniform"], (name, seen)
 
 
-@pytest.mark.parametrize("name", ["zamba2-2.7b", "whisper-medium"])
-def test_other_families_refuse_tensor_parallelism(name):
-    # the hybrid and encoder-decoder families compute on whole weights:
-    # asked for the TP step they raise, naming their family
-    from repro_torch.configs import get_arch, reduce_for_smoke
+@pytest.mark.parametrize("name", [
+    "granite-8b", "olmoe-1b-7b", "phi-3-vision-4.2b", "rwkv6-7b",
+    "zamba2-2.7b", "whisper-medium", "mlp", "resnet"])
+def test_every_language_model_takes_the_tp_path(name):
+    # the six language-model families compute on their shards by default
+    # and when asked; a model without a family (the edge MLP and ResNet)
+    # computes whole weights, and asked for shards it raises
+    from repro_torch.configs import ResNetConfig, get_arch, reduce_for_smoke
     from repro_torch.core.ltfl_step import _tensor_parallel
-    cfg = reduce_for_smoke(get_arch(name))
-    model = build_model(cfg)
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.mlp import MLP
+    from repro_torch.models.resnet import ResNet
+    if name == "mlp":
+        model = MLP()
+    elif name == "resnet":
+        model = ResNet(ResNetConfig(stem_channels=8,
+                                    group_channels=(8, 8, 8, 8)))
+    else:
+        cfg = reduce_for_smoke(get_arch(name))
+        assert cfg.family in tp.FAMILIES
+        model = build_model(cfg)
+        assert _tensor_parallel(model, None) is True
+        assert _tensor_parallel(model, True) is True
+        assert _tensor_parallel(model, False) is False
+        return
     assert _tensor_parallel(model, None) is False
-    with pytest.raises(NotImplementedError, match=repr(cfg.family)):
+    with pytest.raises(NotImplementedError, match="families"):
         _tensor_parallel(model, True)
