@@ -6,6 +6,8 @@ of a contraction sharded 8 ways, and a sharded matmul counted per device
 op). The collectives run on a fake process group of 16 ranks over meta
 tensors: nothing is computed or sent.
 """
+import datetime
+
 import pytest
 import torch
 import torch.distributed as dist
@@ -123,7 +125,8 @@ def test_real_tensors_on_a_one_rank_group():
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port))
-    dist.init_process_group("gloo", rank=0, world_size=1)
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
     try:
         mesh = _mesh(1)
         t = distribute_tensor(torch.arange(6.0).reshape(2, 3), mesh,

@@ -23,6 +23,7 @@ and range sums agree to 1e-5 relative, every updated weight to 1e-7
 absolute (measured: at most 1.5e-8 with the quantizer, bitwise with the
 int8 wire format, whose aggregate every rank sums itself).
 """
+import datetime
 import os
 import socket
 
@@ -85,7 +86,8 @@ def _rank(rank, port, out_dir):
     import torch.distributed as dist
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port))
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", rank=rank, world_size=8)
+    dist.init_process_group("gloo", rank=rank, world_size=8,
+                            timeout=datetime.timedelta(seconds=300))
     try:
         mesh = make_test_mesh(device_type="cpu")
         model, params, batch, controls = _setup()

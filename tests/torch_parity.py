@@ -27,6 +27,12 @@ from repro_torch.models import (
     params_to_numpy,
 )
 
+# one intra-op thread in the test process: the parity tests' ops are
+# small, and beside the suite's other workers (and the ranks they spawn)
+# more threads only wait on each other; the suite's workers import this
+# module while they collect, so every test they run has one thread
+torch.set_num_threads(1)
+
 # the small configuration every parity test uses: ResNet width 8,
 # U = 4 devices, per-device batch 4, a short Algorithm-1 solve
 WIDTH = dict(stem_channels=8, group_channels=(8, 16, 32, 32))

@@ -3,18 +3,24 @@ on a ("data", "model") = (1, 4) mesh of four gloo ranks on the CPU,
 against the unsharded gradients, per leaf (relative norm error and
 largest element error over the largest element): the float32 noise of
 the ranks' partial sums, which the stochastic quantizer can turn into
-level flips.
+level flips. For the encoder-decoder it also compares the gradient of
+the float32 frames, which the model takes in bfloat16, so that gradient
+is bfloat16-valued: the elements that differ and by how many bfloat16
+ulps.
 
   PYTHONPATH=src:tests python3 tools/tp_grad_noise.py zamba2
   PYTHONPATH=src:tests python3 tools/tp_grad_noise.py rwkv --float64
+  PYTHONPATH=src:tests python3 tools/tp_grad_noise.py whisper --layout seq
 
 The config names are ``tests/torch_tp_worker.py``'s; the weights and
 tokens are the TP test's (``tests/test_torch_tensor_parallel.py``,
-which needs jax for its uniforms: this script does not). With
-``--float64`` the leaves and inputs are float64 (the models still cast
-to float32 where the reference does).
+which needs jax for its uniforms: this script does not); ``--layout``
+is one of the test's residual-stream layouts (``torch_tp_worker.LAYOUTS``,
+d_model by default). With ``--float64`` the leaves and inputs are
+float64 (the models still cast to float32 where the reference does).
 """
 import argparse
+import math
 import os
 import socket
 import sys
@@ -32,10 +38,23 @@ def _cast(params, batch, f64):
              for k, v in batch.items()})
 
 
-def _rank(rank, port, name, f64, out):
+def _grads(model, params, batch):
+    """(parameter gradients, the frames' gradient or None, loss) of
+    ``model.loss`` on ``batch``."""
+    if "frames" not in batch:
+        g, loss = torch.func.grad_and_value(model.loss)(params, batch)
+        return g, None, loss
+    (g, gf), loss = torch.func.grad_and_value(
+        lambda p, f: model.loss(p, dict(batch, frames=f)),
+        argnums=(0, 1))(params, batch["frames"])
+    return g, gf, loss
+
+
+def _rank(rank, port, name, f64, layout, out):
     import torch.distributed as dist
 
     import torch_tp_worker as w
+    from repro_torch.launch import dryrun_lib
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import tensor_parallel as tp
@@ -49,13 +68,14 @@ def _rank(rank, port, name, f64, out):
         _, model, params, batch = w.port(name, tree, tokens)
         params, batch = _cast(params, batch, f64)
         mesh = make_mesh((1, 4), ("data", "model"), device_type="cpu")
-        rules = sh.base_rules(mesh)
+        rules = dryrun_lib._apply_variant_rules(sh.base_rules(mesh),
+                                                w.LAYOUTS[layout])
         psh = sh.param_shardings(mesh, model, rules)
         local = {k: sh.local_slice(v, psh[k]).contiguous()
                  for k, v in params.items()}
         with logical_rule_scope(rules, mesh):
-            grads, loss = torch.func.grad_and_value(model.loss)(
-                local, {k: v[0] for k, v in batch.items()})
+            grads, frames, loss = _grads(
+                model, local, {k: v[0] for k, v in batch.items()})
         ctx = tp.context_for(mesh, rules)
         whole = {}
         for k, g in grads.items():
@@ -63,7 +83,7 @@ def _rank(rank, port, name, f64, out):
             whole[k] = (g if "model" not in spec else tp.all_gather(
                 g, ctx, spec.index("model") - len(spec)))
         if rank == 0:
-            torch.save((whole, loss), os.path.join(out, "tp.pt"))
+            torch.save((whole, frames, loss), os.path.join(out, "tp.pt"))
     finally:
         dist.destroy_process_group()
 
@@ -75,6 +95,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("name", choices=sorted(w.CONFIGS))
     ap.add_argument("--float64", action="store_true")
+    ap.add_argument("--layout", choices=sorted(w.LAYOUTS), default="d_model")
     args = ap.parse_args()
     cfg = w.port_config(args.name)
     from repro_torch.models import build_model, params_to_numpy
@@ -88,19 +109,36 @@ def main() -> None:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    mp.spawn(_rank, args=(port, args.name, args.float64, out), nprocs=4,
-             join=True)
-    got, loss = torch.load(os.path.join(out, "tp.pt"))
+    mp.spawn(_rank, args=(port, args.name, args.float64, args.layout, out),
+             nprocs=4, join=True)
+    got, got_frames, loss = torch.load(os.path.join(out, "tp.pt"))
     _, model, params, batch = w.port(args.name, tree, tokens)
     params, batch = _cast(params, batch, args.float64)
-    want, want_loss = torch.func.grad_and_value(model.loss)(
-        params, {k: v[0] for k, v in batch.items()})
-    print(f"{args.name}: loss {float(loss)!r} (unsharded "
+    want, want_frames, want_loss = _grads(
+        model, params, {k: v[0] for k, v in batch.items()})
+    print(f"{args.name} ({args.layout}): loss {float(loss)!r} (unsharded "
           f"{float(want_loss)!r})")
+    if want_frames is not None:
+        _frames_report(got_frames, want_frames)
     for k, v in want.items():
         d = got[k] - v
         print(f"  {k:40s} rel {float(d.norm() / v.norm()):.2e} max "
               f"{float(d.abs().max() / v.abs().max()):.2e}")
+
+
+def _frames_report(got, want) -> None:
+    """The frames' gradients (bfloat16 values): how many elements
+    differ, each difference in bfloat16 ulps of the unsharded value."""
+    diff = (got - want).abs()
+    idx = torch.nonzero(diff > 0)
+    print(f"  frames' gradient: {len(idx)} of {want.numel()} elements "
+          f"differ; bfloat16-valued: "
+          f"{bool(torch.equal(got, got.bfloat16().float()))}")
+    for i in idx[:20].tolist():
+        v = float(want[tuple(i)])
+        ulp = 2.0 ** (math.floor(math.log2(abs(v))) - 7) if v else 0.0
+        print(f"    {tuple(i)}: {v!r} -> {float(got[tuple(i)])!r} "
+              f"({float(diff[tuple(i)]) / ulp if ulp else math.inf:.2f} ulp)")
 
 
 if __name__ == "__main__":
